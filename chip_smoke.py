@@ -6,13 +6,16 @@
 
 Phases, none of them caught — any failure exits non-zero:
 
-1. build and device: build both CUDA kernels from ``src/repro_torch/
+1. build and device: build the three CUDA kernels from ``src/repro_torch/
    kernels/csrc`` with nvcc for sm_90a; print the card and its power limit.
-2. kernels vs plain: both kernels against their plain PyTorch versions on
-   the card, over stencils x steps x keep flags x band shapes, fp32
-   (<= 1e-5 relative) and bf16 (<= 3e-2 relative); then CUDA-event times of
-   each kernel, its plain version, the library yardstick, the bucketing
-   pad and the host<->device copies at the main path's band shape.
+2. kernels vs plain: every kernel against its plain PyTorch version on
+   the card, over stencils x steps x keep flags x band shapes (the banded
+   kernel on the linear stencils only): the fused kernels in fp32
+   (<= 1e-5 relative), the banded kernel in fp32 (<= 2e-5 absolute, the
+   JAX package's bound for it), all in bf16 (<= 3e-2 relative); then
+   CUDA-event times of each kernel, its plain version, the library
+   yardstick, the bucketing pad and the host<->device copies at the main
+   path's band shape, and of all three kernels on the box2d4r main band.
 3. main path: SO2DR gradient2d on a 38400 x 38400 fp32 domain (the
    paper's out-of-core size), d=4, k_off=160, k_on=4, n=320, default
    dispatch (auto -> cuda_db), through the double-buffered and the eager
@@ -20,6 +23,14 @@ Phases, none of them caught — any failure exits non-zero:
    both within 1e-5 relative of the plain oracle run on the card.
 4. the fused kernel on the path: SO2DR box2d1r, same size, n=160, with
    DispatchPolicy(impl="cuda"), checked the same way.
+5. the banded kernel on the path: SO2DR box2d4r, same size, the paper's
+   box2d4r configuration (d=4, k_off=40, k_on=4), n=80, with
+   DispatchPolicy(impl="mxu"), checked the same way.
+6. calibrate and tune: fit a DeviceProfile on the card with all four
+   kernel impls in the sweep, on box2d4r (saved to
+   ``chiprun_out/profile.json``), then rank box2d4r configurations with it
+   and measure the top four; each measured candidate must have launched
+   its own impl's kernel.
 
 The line before the last is the card's name and power limit; before it,
 a ``{"kernels": [...]}`` JSON line.  The last line is
@@ -43,6 +54,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.core.calibrate import calibrate  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
     DoubleBufferedExecutor, EagerExecutor)
 from repro_torch.core.lower import host_register, host_unregister  # noqa: E402
@@ -50,8 +62,12 @@ from repro_torch.core.oocore import compile_plan  # noqa: E402
 from repro_torch.core.plan import FusedKernel, fused_box_geometry  # noqa: E402
 from repro_torch.core.reference import run_reference  # noqa: E402
 from repro_torch.core.stencil import get_stencil  # noqa: E402
+from repro_torch.core.tune import TuneSpec, _default_measure, tune  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.dispatch import DispatchPolicy  # noqa: E402
+from repro_torch.kernels.dispatch import (  # noqa: E402
+    DispatchPolicy, select_kernel)
+from repro_torch.kernels.stencil_banded_mxu import (  # noqa: E402
+    banded_fused_stencil, banded_fused_stencil_plain, banded_smem_bytes)
 from repro_torch.kernels.stencil_multistep import (  # noqa: E402
     fused_stencil_band, fused_stencil_band_plain)
 from repro_torch.kernels.stencil_multistep_db import (  # noqa: E402
@@ -60,7 +76,10 @@ from repro_torch.kernels.stencil_multistep_db import (  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 494.7e12       # dense, tensor cores
 FP32_TOL, BF16_TOL = 1e-5, 3e-2
+MXU_FP32_ABS_TOL = 2e-5           # tests/test_kernels.py:80
+IMPLS = ("reference", "cuda", "cuda_db", "mxu")
 ORACLE_BLOCK_ROWS = 2048
 KERNELS = {
     "cuda": dict(
@@ -73,6 +92,11 @@ KERNELS = {
         name="fused_stencil_band_db",
         source="src/repro_torch/kernels/csrc/fused_stencil_band_db.cu",
         replaces="src/repro/kernels/stencil_multistep_db.py:90"),
+    "mxu": dict(
+        fn=banded_fused_stencil, plain=banded_fused_stencil_plain,
+        name="banded_fused_stencil",
+        source="src/repro_torch/kernels/csrc/banded_fused_stencil.cu",
+        replaces="src/repro/kernels/stencil_banded_mxu.py:110"),
 }
 RESULT = {"phases": {}}
 
@@ -164,7 +188,9 @@ def phase_kernels_vs_plain() -> None:
     dtypes = {"fp32": (torch.float32, FP32_TOL),
               "bf16": (torch.bfloat16, BF16_TOL)}
     worst = {impl: dict.fromkeys(dtypes, 0.0) for impl in KERNELS}
-    cases = bitwise = 0
+    cases = 0
+    bitwise = dict.fromkeys(KERNELS, 0)
+    fp32_cases = dict.fromkeys(KERNELS, 0)
     with phase("kernels_vs_plain"):
         for name, steps, (H, X), kt, kb in itertools.product(
                 ("box2d1r", "box2d4r", "star2d3r", "gradient2d"), (1, 2, 4),
@@ -178,21 +204,32 @@ def phase_kernels_vs_plain() -> None:
             for key, (dtype, tol) in dtypes.items():
                 xb = x.to(dtype)
                 for impl, k in KERNELS.items():
+                    if impl == "mxu" and not get_stencil(name).is_linear:
+                        continue
                     ref = k["plain"](xb, name, steps, kt, kb)
                     got = k["fn"](xb, name, steps, kt, kb)
                     torch.cuda.synchronize()
-                    err = rel_err(got, ref)
                     check(got.shape == ref.shape, impl, name, got.shape)
+                    if impl == "mxu" and key == "fp32":
+                        # the banded kernel sums in the tensor cores' order
+                        err = float((got - ref).abs().max())
+                        tol = MXU_FP32_ABS_TOL
+                    else:
+                        err = rel_err(got, ref)
                     check(err <= tol, impl, name, steps, H, X, kt, kb, key,
                           err)
                     worst[impl][key] = max(worst[impl][key], err)
                     cases += 1
                     if key == "fp32":
-                        bitwise += int(torch.equal(got, ref))
-        RESULT["kernels_vs_plain"] = dict(cases=cases, fp32_bitwise=bitwise,
-                                          worst_rel_err=worst)
-        log(f"{cases} kernel-vs-plain cases pass; fp32 bitwise equal in "
-            f"{bitwise} of {cases // 2}; worst rel err {worst}")
+                        fp32_cases[impl] += 1
+                        bitwise[impl] += int(torch.equal(got, ref))
+        RESULT["kernels_vs_plain"] = dict(
+            cases=cases, fp32_cases=fp32_cases, fp32_bitwise=bitwise,
+            worst_err=worst,
+            err_kind="mxu fp32: max abs; else max rel")
+        log(f"{cases} kernel-vs-plain cases pass; fp32 bitwise equal "
+            f"{bitwise} of {fp32_cases}; worst err (mxu fp32 absolute, "
+            f"else relative) {worst}")
 
 
 def main_band_shape(plan) -> tuple:
@@ -212,8 +249,64 @@ def bound(name: str, shape, steps: int, itemsize: int = 4):
         (False, True), itemsize)
     nbytes = (shape[0] * shape[1] + shape_out[0] * shape_out[1]) * itemsize
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops) * 1e3,
+    return dict(bytes=nbytes, flops=flops, bytes_ms=t_bytes * 1e3,
+                ops_ms=t_ops * 1e3, bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_one_step_ms(band: torch.Tensor, name: str) -> float:
+    """Yardstick only, never called by the port: one step of a linear
+    stencil as a convolution, in full fp32 (TF32 off)."""
+    w = torch.from_numpy(get_stencil(name).coeffs.astype(np.float32)).to(
+        band.device)[None, None]
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return cuda_ms(lambda: torch.nn.functional.conv2d(band[None, None],
+                                                          w), reps=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+
+
+def mma_ms(name: str, shape, steps: int, tile=None) -> float:
+    """The banded kernel's own tensor-core work at the dense TF32 rate:
+    every m16n8k8 it issues (3 per nonzero K-block, 2r+1 row offsets, all
+    fragments of all tiles, every step) at 2048 FLOP each."""
+    from repro_torch.kernels import MXU_CUDA_TILE, ceil_div
+    from repro_torch.kernels._build import fit_tile
+
+    r = get_stencil(name).radius
+    H, X = shape
+    h_out = H - 2 * steps * r
+    ty, tx = fit_tile(tile or MXU_CUDA_TILE, h_out, X, steps, r, 4, 2,
+                      lambda a, b: banded_smem_bytes(a, b, steps, r, 4))
+    th, tw = ty + 2 * steps * r, tx + 2 * steps * r
+    frags = ceil_div(th - 2 * r, 16) * ceil_div(tw - 2 * r, 8)
+    mmas = (ceil_div(h_out, ty) * ceil_div(X, tx) * steps * frags
+            * (2 * r + 1) * ceil_div(8 + 2 * r, 8) * 3)
+    return mmas * 2048 / TF32_FLOPS_PER_S * 1e3
+
+
+def kernel_record(impl: str, name: str, band: torch.Tensor, m: int) -> dict:
+    """One kernel against its plain version on a main-path band: the
+    error (held to its tolerance), CUDA-event times of both, the bound."""
+    k = KERNELS[impl]
+    got = k["fn"](band, name, m)
+    ref = k["plain"](band, name, m)
+    torch.cuda.synchronize()
+    rec = dict(stencil=name, band=list(band.shape), steps=m,
+               max_abs_err=float((got - ref).abs().max()),
+               bitwise=bool(torch.equal(got, ref)))
+    if impl == "mxu":
+        check(rec["max_abs_err"] <= MXU_FP32_ABS_TOL, impl, rec)
+    else:
+        check(rel_err(got, ref) <= FP32_TOL, impl, rec)
+    del got, ref
+    rec["ms"] = cuda_ms(lambda: k["fn"](band, name, m), reps=10)
+    rec["plain_ms"] = cuda_ms(lambda: k["plain"](band, name, m), reps=3)
+    rec.update(bound(name, tuple(band.shape), m))
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_kernel_times(size: int) -> None:
@@ -226,33 +319,11 @@ def phase_kernel_times(size: int) -> None:
             (H, X), m = main_band_shape(plan)
             band = torch.randn((H, X), generator=torch.Generator(
                 device=dev).manual_seed(3), device=dev)
-            k = KERNELS[impl]
-            got = k["fn"](band, name, m)
-            ref = k["plain"](band, name, m)
-            torch.cuda.synchronize()
-            rec = dict(stencil=name, band=[H, X], steps=m,
-                       max_abs_err=float((got - ref).abs().max()),
-                       bitwise=bool(torch.equal(got, ref)))
-            del got, ref
-            rec["ms"] = cuda_ms(lambda: k["fn"](band, name, m), reps=10)
-            rec["plain_ms"] = cuda_ms(lambda: k["plain"](band, name, m),
-                                      reps=3)
-            rec.update(bound(name, (H, X), m))
+            rec = kernel_record(impl, name, band, m)
             rec["library_ms"] = None
             if name == "box2d1r":
-                # yardstick only, never called by the port: one step of
-                # box2d1r as a convolution, in full fp32 (TF32 off)
-                w = torch.from_numpy(get_stencil(name).coeffs.astype(
-                    np.float32)).to(dev)[None, None]
-                allow = torch.backends.cudnn.allow_tf32
-                torch.backends.cudnn.allow_tf32 = False
-                try:
-                    rec["library_ms"] = cuda_ms(
-                        lambda: torch.nn.functional.conv2d(band[None, None],
-                                                           w), reps=3)
-                    rec["library_call"] = "F.conv2d, one step, TF32 off"
-                finally:
-                    torch.backends.cudnn.allow_tf32 = allow
+                rec["library_ms"] = conv_one_step_ms(band, name)
+                rec["library_call"] = "F.conv2d, one step, TF32 off"
             # the lowering's bucketing pad: a fresh zero block concatenated
             # to the band before a shorter call of the same group
             z = torch.zeros((2 * m, X), device=dev)
@@ -313,6 +384,44 @@ def phase_kernel_times(size: int) -> None:
             {k: round(v, 2) for k, v in copies.items()}))
 
 
+def phase_box2d4r_times(size: int) -> None:
+    """All three kernels on the box2d4r main path's band (the paper's
+    box2d4r configuration): which is fastest on the card, and whether the
+    data-sheet auto rule picks it."""
+    dev = torch.device("cuda")
+    name = "box2d4r"
+    timings = {}
+    with phase("box2d4r_times"):
+        plan = compile_plan("so2dr", get_stencil(name), size, size, 80, 4,
+                            40, 4)
+        (H, X), m = main_band_shape(plan)
+        band = torch.randn((H, X), generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        library_ms = conv_one_step_ms(band, name)
+        for impl in ("mxu", "cuda_db", "cuda"):
+            rec = kernel_record(impl, name, band, m)
+            rec["library_ms"] = library_ms
+            rec["library_call"] = "F.conv2d, one step, TF32 off"
+            if impl == "mxu":
+                rec["mma_ms_at_tf32_peak"] = mma_ms(name, (H, X), m)
+            timings[impl] = rec
+            log(f"{impl} on {name} {H}x{X} m={m}: kernel {rec['ms']:.3f} ms, "
+                f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} "
+                f"ms ({rec['bound_by']}; bytes {rec['bytes_ms']:.3f} ms, "
+                f"operations {rec['ops_ms']:.3f} ms), library (one step) "
+                f"{library_ms:.3f} ms, max|err| {rec['max_abs_err']}"
+                + (f", mma count at TF32 peak {rec['mma_ms_at_tf32_peak']:.3f}"
+                   f" ms" if impl == "mxu" else ""))
+        del band
+        fastest = min(timings, key=lambda i: timings[i]["ms"])
+        auto = select_kernel(name, m, DispatchPolicy(), device=dev)[0]
+        RESULT["box2d4r_times"] = dict(kernels=timings, fastest=fastest,
+                                       auto_impl=auto,
+                                       auto_is_fastest=auto == fastest)
+        log(f"box2d4r: fastest kernel {fastest}; auto (data-sheet rule) "
+            f"picks {auto}")
+
+
 def oracle_check(x: np.ndarray, name: str, n: int, outs: dict) -> dict:
     """Run the plain oracle on the card and hold each output to it."""
     dev = torch.device("cuda")
@@ -338,15 +447,15 @@ def oracle_check(x: np.ndarray, name: str, n: int, outs: dict) -> dict:
 
 
 def phase_main_path(key: str, name: str, size: int, n: int, impl: str,
-                    policy: DispatchPolicy) -> None:
+                    policy: DispatchPolicy, k_off: int = 160) -> None:
     with phase(key):
         rng = np.random.default_rng(20231108)
         t0 = time.perf_counter()
         x = rng.standard_normal((size, size), dtype=np.float32)
         plan = compile_plan("so2dr", get_stencil(name), size, size, n, 4,
-                            160, 4)
+                            k_off, 4)
         rec = {"stencil": name, "shape": [size, size], "n": n, "d": 4,
-               "k_off": 160, "k_on": 4, "setup_s": time.perf_counter() - t0,
+               "k_off": k_off, "k_on": 4, "setup_s": time.perf_counter() - t0,
                "plan_kernel_calls": plan.stats().kernel_calls}
         outs = {}
         for cls in (DoubleBufferedExecutor, EagerExecutor):
@@ -383,6 +492,64 @@ def phase_main_path(key: str, name: str, size: int, n: int, impl: str,
         RESULT[key] = rec
 
 
+def phase_calibrate_tune(size: int, out_dir: str) -> None:
+    with phase("calibrate_tune"):
+        t0 = time.perf_counter()
+        # calibrated on the stencil it then tunes: one stencil's ladder
+        # moves bytes and FLOPs together, so a box2d1r fit cannot say what
+        # box2d4r's 9x the FLOPs per byte cost
+        prof = calibrate(quick=False, kernel_impls=IMPLS, stencil="box2d4r",
+                         device="cuda", progress=log)
+        path = prof.save(os.path.join(out_dir, "profile.json"))
+        rec = {"calibrate_s": time.perf_counter() - t0,
+               "profile": os.path.relpath(path, ROOT),
+               "profile_id": prof.profile_id,
+               "hardware": {k: prof.hardware[k] for k in (
+                   "bw_intc", "bw_dmem", "peak_vpu_flops", "t_ici_latency")},
+               "kernel_terms": prof.kernel_terms,
+               "residuals": prof.residuals}
+        log(f"profile {prof.profile_id} -> {rec['profile']}: "
+            + json.dumps(rec["hardware"]))
+        for impl, t in prof.kernel_terms.items():
+            log(f"  {impl}: bw_eff {t['bw_eff']:.4g} B/s, flops_eff "
+                f"{t['flops_eff']:.4g} FLOP/s, residual {t['residual']:.4f} "
+                f"({t['n_points']} points)")
+        spec = TuneSpec("box2d4r", size + 8, 640, kernel_impls=IMPLS)
+        base = _default_measure(prof.as_hardware(), prof, "cuda")
+        launched_by = []
+
+        def measure(spec_, res):
+            reset_counts()
+            out = base(spec_, res)
+            launched = counts()
+            impl = res.config["kernel_impl"]
+            if out is not None:
+                es = out[2]
+                check(es.kernel_impl == impl, impl, es.kernel_impl)
+                # a warm-up run and the measured run
+                want = 0 if impl == "reference" else 2 * es.kernel_calls
+                check(sum(launched.values()) == want
+                      and (impl == "reference" or launched[impl] == want),
+                      impl, launched, es.kernel_calls)
+            launched_by.append(dict(config=res.config, launches=launched))
+            return out
+
+        t0 = time.perf_counter()
+        ranked = tune(spec, profile=prof, budget=4, measure=measure)
+        rec["tune_s"] = time.perf_counter() - t0
+        check(len(ranked) > 0, "tune found no candidate")
+        measured = [r for r in ranked[:4] if r.measured_s is not None]
+        check(len(measured) > 0, "tune measured no candidate")
+        rec["candidates"] = len(ranked)
+        rec["top5"] = [r.to_record() for r in ranked[:5]]
+        rec["measured_launches"] = launched_by
+        for r in ranked[:5]:
+            log(f"  {json.dumps(r.config, default=str)}: modeled "
+                f"{r.modeled_s:.4g} s, measured {r.measured_s}, model error "
+                f"{r.model_error}")
+        RESULT["calibrate_tune"] = rec
+
+
 def kernels_line() -> dict:
     out = []
     for impl, key in (("cuda", "main_path_box2d1r"),
@@ -395,6 +562,14 @@ def kernels_line() -> dict:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    k, t = KERNELS["mxu"], RESULT["box2d4r_times"]["kernels"]["mxu"]
+    out.append({
+        "name": k["name"], "route": "cuda", "source": k["source"],
+        "replaces": k["replaces"],
+        "launches": RESULT["main_path_box2d4r"]["double_buffered"]["launches"],
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     return {"kernels": out}
 
 
@@ -406,19 +581,25 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "fp32 matmuls must run in full precision for the plain versions")
     t_all = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
     phase_build()
     phase_kernels_vs_plain()
     phase_kernel_times(args.size)
+    phase_box2d4r_times(args.size)
     phase_main_path("main_path_gradient2d", "gradient2d", args.size, 320,
                     "cuda_db", DispatchPolicy())
     phase_main_path("main_path_box2d1r", "box2d1r", args.size, 160, "cuda",
                     DispatchPolicy(impl="cuda"))
+    phase_main_path("main_path_box2d4r", "box2d4r", args.size, 80, "mxu",
+                    DispatchPolicy(impl="mxu"), k_off=40)
+    phase_calibrate_tune(args.size, out_dir)
     RESULT["total_s"] = time.perf_counter() - t_all
     line = kernels_line()
     RESULT.update(line)
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(RESULT, f, indent=1, default=str)
     log(f"total {RESULT['total_s']:.1f} s")

@@ -1,7 +1,7 @@
 """repro_torch: SO2DR on PyTorch and CUDA — the port of ``repro``.
 
-The planners, plan IR, lowering, executors and codecs of ``repro.core``
-on PyTorch tensors, with the fused-stencil kernels written by hand for
+The planners, plan IR, lowering, executors, codecs, cost model,
+calibration and tuner of ``repro.core`` on PyTorch tensors, with the fused-stencil kernels written by hand for
 Hopper (``repro_torch.kernels``).  It imports neither JAX nor ``repro``.
 Importing it builds and loads no kernel: the CUDA library is built the
 first time a kernel launches.  Entry points run on the GPU unless the
@@ -21,6 +21,14 @@ from .core import (  # noqa: F401
     get_codec,
     compress_plan,
     run_reference,
+    Hardware,
+    H100_SXM,
+    tune,
+    TuneSpec,
+    TuneResult,
+    DeviceProfile,
+    calibrate,
+    resolve_hardware,
 )
 
 __all__ = [
@@ -37,4 +45,12 @@ __all__ = [
     "get_codec",
     "compress_plan",
     "run_reference",
+    "Hardware",
+    "H100_SXM",
+    "tune",
+    "TuneSpec",
+    "TuneResult",
+    "DeviceProfile",
+    "calibrate",
+    "resolve_hardware",
 ]

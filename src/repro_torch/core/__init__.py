@@ -5,7 +5,14 @@ lowered to slot-bound stage programs with a shape-bucketed kernel cache
 (lower), interpreted by executors (executor: eager / double-buffered /
 dry-run) on a device (device: None means ``cuda``).  Oracle (reference),
 stencil registry, chunk algebra (tiling), transfer codecs (compress).
+The Sec. III/IV-C cost models (analytic/params/accounting), measured
+calibration (calibrate) and the tuner (autotune, tune) choose among the
+engines, configurations and kernels.
 """
+from .analytic import EngineTimes, H100_SXM, Hardware, RTX3080_PAPER, TPU_V5E, model_times, times_from_plan  # noqa: F401
+from .autotune import BoxChoice, Choice, autotune, autotune_box, optimization_target  # noqa: F401
+from .autotune import predicted_makespan, stage_costs, trapezoid_redundant_elements  # noqa: F401
+from .calibrate import DeviceProfile, ProfileError, calibrate, resolve_hardware  # noqa: F401
 from .compress import CODECS, Codec, compress_plan, get_codec, register_codec  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .executor import DoubleBufferedExecutor, DryRunExecutor, EagerExecutor, get_executor  # noqa: F401
@@ -15,3 +22,4 @@ from .oocore import compile_box_plan, compile_plan, compile_plan_nd  # noqa: F40
 from .plan import Box, BufferRead, BufferWrite, Compress, D2H, Decompress, ExecutionPlan, FusedKernel, H2D, HostCommit  # noqa: F401
 from .reference import multi_step_band, multi_step_box, run_reference, step_band, step_band_nd, step_domain  # noqa: F401
 from .stencil import PAPER_BENCHMARKS, REGISTRY, Stencil, get_stencil  # noqa: F401
+from .tune import TuneResult, TuneSpec, tune  # noqa: F401

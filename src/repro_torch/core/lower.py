@@ -76,8 +76,9 @@ class ExecStats:
     Wall-clock numbers are host-observed time per op class; on CUDA most
     ops return once their work is queued, so they measure dispatch, not
     device time.  The cache/op counters are the deterministic part.
-    (The JAX package's fault, model-error and merge fields come with the
-    slices that port faults, the cost model and the service.)"""
+    ``modeled_s``/``model_error`` are set by the tuner's measured
+    refinement (:func:`repro_torch.core.tune.tune`).  (The JAX package's
+    fault counters come with the slice that ports faults.)"""
 
     executor: str = ""
     kernel_impl: str = ""
@@ -90,6 +91,38 @@ class ExecStats:
     stage_count: int = 0
     lower_s: float = 0.0
     wall_s: float = 0.0
+    modeled_s: Optional[float] = None     # Sec. III prediction for this run
+    model_error: Optional[float] = None   # (modeled_s - wall_s) / wall_s
+
+    def __post_init__(self):
+        # plain attribute, not a dataclass field: asdict/== never see it
+        self._lock = threading.Lock()
+
+    def merge(self, other: "ExecStats") -> "ExecStats":
+        """Accumulate another run's counters and timers into this one,
+        thread-safely.  Counters and wall clocks sum; identity fields keep
+        the first non-empty value; ``modeled_s`` sums and ``model_error``
+        is recomputed against the summed wall clock."""
+        with self._lock:
+            for k, v in other.op_counts.items():
+                self.op_counts[k] = self.op_counts.get(k, 0) + v
+            for k, v in other.op_wall_s.items():
+                self.op_wall_s[k] = self.op_wall_s.get(k, 0.0) + v
+            self.kernel_calls += other.kernel_calls
+            self.shape_buckets += other.shape_buckets
+            self.kernel_compiles += other.kernel_compiles
+            self.kernel_cache_hits += other.kernel_cache_hits
+            self.stage_count += other.stage_count
+            self.lower_s += other.lower_s
+            self.wall_s += other.wall_s
+            self.executor = self.executor or other.executor
+            self.kernel_impl = self.kernel_impl or other.kernel_impl
+            if other.modeled_s is not None:
+                self.modeled_s = (self.modeled_s or 0.0) + other.modeled_s
+            if self.modeled_s is not None and self.wall_s > 0:
+                self.model_error = ((self.modeled_s - self.wall_s)
+                                    / self.wall_s)
+        return self
 
 
 class KernelCache:

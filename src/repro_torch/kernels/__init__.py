@@ -4,8 +4,12 @@
                           steps), CUDA C++ in ``csrc/fused_stencil_band.cu``
 * stencil_multistep_db  — persistent variant with a two-slot ``cp.async``
                           ring, ``csrc/fused_stencil_band_db.cu``
+* stencil_banded_mxu    — linear stencils as banded products on the
+                          tensor cores (3xTF32 ``mma.sync``),
+                          ``csrc/banded_fused_stencil.cu``
 * dispatch              — registry selecting the implementation per
-                          (stencil, steps, backend)
+                          (stencil, steps, backend), and the per-impl
+                          kernel cost model
 * ops                   — public wrappers;  ref — plain PyTorch oracles
 * _build                — builds ``csrc/*.cu`` with ``nvcc`` at first use
 
@@ -14,15 +18,27 @@ the CUDA library is built the first time a kernel launches.
 """
 from __future__ import annotations
 
-__all__ = ["DEFAULT_TILE", "CUDA_TILE"]
+__all__ = ["DEFAULT_TILE", "MXU_TILE", "CUDA_TILE", "MXU_CUDA_TILE",
+           "ceil_div"]
 
 # the JAX package's VMEM tile (rows, lanes); kept for planner parity.  At
 # fp32 it is 512 KiB before the apron — more than the 227 KB of shared
 # memory a Hopper block can use — so the CUDA kernels use CUDA_TILE.
 DEFAULT_TILE = (256, 512)
+# the JAX package's banded-matmul tile: lane dim 128 matches the TPU's
+# systolic array; kept for parity of the cost model
+MXU_TILE = (DEFAULT_TILE[0], 128)
 # output tile (rows, columns) of the CUDA kernels: 128 columns give each
 # warp four coalesced 128-byte row segments; with the worst 2-D apron
 # (box2d4r, 4 fused steps: 2*m*r = 32) one fp32 buffer is
 # (32+32) x (128+32) x 4 B = 40 KiB, so the fused kernel's two buffers
 # and the persistent kernel's three fit a block's 227 KB.
 CUDA_TILE = (32, 128)
+# output tile of the banded tensor-core kernel: the centre is covered by
+# 16-row x 8-column mma fragments, so rows are a multiple of 16; at
+# box2d4r, m=4 its two padded fp32 buffers take 133 KiB
+MXU_CUDA_TILE = (64, 128)
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)

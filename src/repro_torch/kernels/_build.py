@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +44,8 @@ SMEM_LIMIT = 232448
 
 # kernel entry points: (in, out, dtype, kind, H, X, h_out, r, m, keep_top,
 # keep_bottom, ty, tx, ntaps, tap_dy, tap_dx, tap_c, stream) -> cudaError_t
-ENTRY_POINTS = ("repro_fused_stencil_band", "repro_fused_stencil_band_db")
+ENTRY_POINTS = ("repro_fused_stencil_band", "repro_fused_stencil_band_db",
+                "repro_banded_fused_stencil")
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12
              + [ctypes.c_void_p] * 4)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,13 +154,19 @@ def _taps(name: str) -> Tuple[int, np.ndarray, np.ndarray, np.ndarray]:
 
 
 def fit_tile(tile: Tuple[int, int], h_out: int, X: int, steps: int,
-             radius: int, itemsize: int, buffers: int) -> Tuple[int, int]:
+             radius: int, itemsize: int, buffers: int,
+             smem_bytes: Optional[Callable[[int, int], int]] = None,
+             ) -> Tuple[int, int]:
     """The output tile a kernel launches with: ``tile`` cut to the band,
     then halved (rows first) until ``buffers`` apron'd tiles fit the
-    shared memory of one block."""
+    shared memory of one block.  ``smem_bytes(ty, tx)`` replaces that
+    footprint for a kernel that pads its tiles (the banded kernel)."""
     ty, tx = min(tile[0], h_out), min(tile[1], X)
     apron = 2 * steps * radius
-    while buffers * (ty + apron) * (tx + apron) * itemsize > SMEM_LIMIT:
+    if smem_bytes is None:
+        def smem_bytes(ty, tx):
+            return buffers * (ty + apron) * (tx + apron) * itemsize
+    while smem_bytes(ty, tx) > SMEM_LIMIT:
         if ty > 1:
             ty = (ty + 1) // 2
         elif tx > 1:
@@ -172,10 +179,13 @@ def fit_tile(tile: Tuple[int, int], h_out: int, X: int, steps: int,
 
 def call_band_kernel(entry: str, band: torch.Tensor, name: str, steps: int,
                      keep_top: bool, keep_bottom: bool,
-                     tile: Tuple[int, int], buffers: int) -> torch.Tensor:
+                     tile: Tuple[int, int], buffers: int,
+                     smem_bytes: Optional[Callable[[int, int], int]] = None,
+                     ) -> torch.Tensor:
     """Check a CUDA band, allocate the output and launch ``entry`` on the
     current stream.  Raises on what the kernels do not take and when the
-    launch fails."""
+    launch fails.  ``buffers``/``smem_bytes`` size the tile as
+    :func:`fit_tile` does."""
     if band.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a {band.device.type} tensor")
     if band.dim() != 2:
@@ -191,7 +201,8 @@ def call_band_kernel(entry: str, band: torch.Tensor, name: str, steps: int,
     h_out = H - 2 * m * r + (int(keep_top) + int(keep_bottom)) * m * r
     if m <= 0 or h_out <= 0:
         raise ValueError(f"band of {H} rows too small for {m} fused steps")
-    ty, tx = fit_tile(tile, h_out, X, m, r, band.element_size(), buffers)
+    ty, tx = fit_tile(tile, h_out, X, m, r, band.element_size(), buffers,
+                      smem_bytes)
     out = torch.empty((h_out, X), dtype=band.dtype, device=band.device)
     fn = getattr(library(), entry)
     ntaps = len(dy) if kind == 0 else 0

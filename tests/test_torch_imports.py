@@ -29,7 +29,11 @@ def test_every_module_imports_without_jax_or_repro():
     names = _modules()
     assert {"repro_torch.core.lower", "repro_torch.kernels.dispatch",
             "repro_torch.kernels._build",
-            "repro_torch.kernels.stencil_multistep_db"} <= set(names)
+            "repro_torch.kernels.stencil_multistep_db",
+            "repro_torch.kernels.stencil_banded_mxu",
+            "repro_torch.core.analytic", "repro_torch.core.params",
+            "repro_torch.core.accounting", "repro_torch.core.calibrate",
+            "repro_torch.core.autotune", "repro_torch.core.tune"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
