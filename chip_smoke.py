@@ -15,7 +15,9 @@ Phases, none of them caught — any failure exits non-zero:
    JAX package's bound for it), all in bf16 (<= 3e-2 relative); then
    CUDA-event times of each kernel, its plain version, the library
    yardstick, the bucketing pad and the host<->device copies at the main
-   path's band shape, and of all three kernels on the box2d4r main band.
+   path's band shape, and of all three kernels on the box2d4r main band
+   (with the time the banded kernel's own MMAs would take at the dense
+   TF32 peak, and the launch shape of the two persistent kernels).
 3. main path: SO2DR gradient2d on a 38400 x 38400 fp32 domain (the
    paper's out-of-core size), d=4, k_off=160, k_on=4, n=320, default
    dispatch (auto -> cuda_db), through the double-buffered and the eager
@@ -33,7 +35,9 @@ Phases, none of them caught — any failure exits non-zero:
    its own impl's kernel.
 
 The line before the last is the card's name and power limit; before it,
-a ``{"kernels": [...]}`` JSON line.  The last line is
+a ``{"kernels": [...]}`` JSON line, and before that the launch shape of
+the persistent kernels (threads and shared bytes per CTA, CTAs per SM
+from the occupancy API, grid).  The last line is
 ``{"ok": true, "device": {...}}``.  The full record goes to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -67,11 +71,12 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.dispatch import (  # noqa: E402
     DispatchPolicy, select_kernel)
 from repro_torch.kernels.stencil_banded_mxu import (  # noqa: E402
-    banded_fused_stencil, banded_fused_stencil_plain, banded_smem_bytes)
+    banded_fused_stencil, banded_fused_stencil_plain, banded_launch_shape,
+    banded_mma_count, banded_smem_bytes)
 from repro_torch.kernels.stencil_multistep import (  # noqa: E402
     fused_stencil_band, fused_stencil_band_plain)
 from repro_torch.kernels.stencil_multistep_db import (  # noqa: E402
-    fused_stencil_band_db, fused_stencil_band_db_plain)
+    db_launch_shape, fused_stencil_band_db, fused_stencil_band_db_plain)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -270,8 +275,9 @@ def conv_one_step_ms(band: torch.Tensor, name: str) -> float:
 
 def mma_ms(name: str, shape, steps: int, tile=None) -> float:
     """The banded kernel's own tensor-core work at the dense TF32 rate:
-    every m16n8k8 it issues (3 per nonzero K-block, 2r+1 row offsets, all
-    fragments of all tiles, every step) at 2048 FLOP each."""
+    every m16n8k8 it issues (``banded_mma_count`` per tile: 3 per nonzero
+    K-block, 2 K-blocks, 2r+1 row offsets, every fragment of each step's
+    trapezoid grid) over all tiles, at 2048 FLOP each."""
     from repro_torch.kernels import MXU_CUDA_TILE, ceil_div
     from repro_torch.kernels._build import fit_tile
 
@@ -279,12 +285,18 @@ def mma_ms(name: str, shape, steps: int, tile=None) -> float:
     H, X = shape
     h_out = H - 2 * steps * r
     ty, tx = fit_tile(tile or MXU_CUDA_TILE, h_out, X, steps, r, 4, 2,
-                      lambda a, b: banded_smem_bytes(a, b, steps, r, 4))
-    th, tw = ty + 2 * steps * r, tx + 2 * steps * r
-    frags = ceil_div(th - 2 * r, 16) * ceil_div(tw - 2 * r, 8)
-    mmas = (ceil_div(h_out, ty) * ceil_div(X, tx) * steps * frags
-            * (2 * r + 1) * ceil_div(8 + 2 * r, 8) * 3)
+                      lambda a, b: banded_smem_bytes(a, b, steps, r))
+    mmas = (ceil_div(h_out, ty) * ceil_div(X, tx)
+            * banded_mma_count(ty, tx, steps, r))
     return mmas * 2048 / TF32_FLOPS_PER_S * 1e3
+
+
+def kernel_launch_shape(impl: str, name: str, band: torch.Tensor,
+                        m: int) -> dict:
+    """Threads and shared memory per CTA, CTAs per SM (the occupancy
+    API's) and the grid of a redesigned kernel's launch on this band."""
+    fn = db_launch_shape if impl == "cuda_db" else banded_launch_shape
+    return fn(band, name, m)
 
 
 def kernel_record(impl: str, name: str, band: torch.Tensor, m: int) -> dict:
@@ -320,6 +332,8 @@ def phase_kernel_times(size: int) -> None:
             band = torch.randn((H, X), generator=torch.Generator(
                 device=dev).manual_seed(3), device=dev)
             rec = kernel_record(impl, name, band, m)
+            if impl == "cuda_db":
+                rec["launch_shape"] = kernel_launch_shape(impl, name, band, m)
             rec["library_ms"] = None
             if name == "box2d1r":
                 rec["library_ms"] = conv_one_step_ms(band, name)
@@ -400,6 +414,8 @@ def phase_box2d4r_times(size: int) -> None:
         library_ms = conv_one_step_ms(band, name)
         for impl in ("mxu", "cuda_db", "cuda"):
             rec = kernel_record(impl, name, band, m)
+            if impl in ("mxu", "cuda_db"):
+                rec["launch_shape"] = kernel_launch_shape(impl, name, band, m)
             rec["library_ms"] = library_ms
             rec["library_call"] = "F.conv2d, one step, TF32 off"
             if impl == "mxu":
@@ -603,6 +619,16 @@ def main(argv=None) -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(RESULT, f, indent=1, default=str)
     log(f"total {RESULT['total_s']:.1f} s")
+    for impl, name, rec in (
+            ("cuda_db", "gradient2d", RESULT["kernel_times"]["cuda_db"]),
+            ("cuda_db", "box2d4r",
+             RESULT["box2d4r_times"]["kernels"]["cuda_db"]),
+            ("mxu", "box2d4r", RESULT["box2d4r_times"]["kernels"]["mxu"])):
+        sh = rec["launch_shape"]
+        log(f"launch shape {KERNELS[impl]['name']} on {name} "
+            f"{rec['band'][0]}x{rec['band'][1]}: {sh['threads']} threads and "
+            f"{sh['smem_bytes']} B shared per CTA, {sh['ctas_per_sm']} CTAs "
+            f"per SM, grid {sh['grid']}, tile {sh['tile'][0]}x{sh['tile'][1]}")
     print(json.dumps(line))
     print(RESULT["card"])
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,8 @@ the CUDA library is built the first time a kernel launches.
 """
 from __future__ import annotations
 
-__all__ = ["DEFAULT_TILE", "MXU_TILE", "CUDA_TILE", "MXU_CUDA_TILE",
-           "ceil_div"]
+__all__ = ["DEFAULT_TILE", "MXU_TILE", "CUDA_TILE", "DB_CUDA_TILE",
+           "MXU_CUDA_TILE", "ceil_div"]
 
 # the JAX package's VMEM tile (rows, lanes); kept for planner parity.  At
 # fp32 it is 512 KiB before the apron — more than the 227 KB of shared
@@ -34,9 +34,15 @@ MXU_TILE = (DEFAULT_TILE[0], 128)
 # (32+32) x (128+32) x 4 B = 40 KiB, so the fused kernel's two buffers
 # and the persistent kernel's three fit a block's 227 KB.
 CUDA_TILE = (32, 128)
+# output tile of the persistent kernel: its warps walk 32-column groups of
+# each step's region, and at gradient2d, m=4 a 120-column tile makes the
+# first step's region 126 columns wide (4 groups) where 128 would make it
+# 134 (5 groups, the last nearly idle); with the worst 2-D apron
+# (box2d4r, m=4) its three fp32 tiles take 175 KiB, one CTA per SM
+DB_CUDA_TILE = (64, 120)
 # output tile of the banded tensor-core kernel: the centre is covered by
 # 16-row x 8-column mma fragments, so rows are a multiple of 16; at
-# box2d4r, m=4 its two padded fp32 buffers take 133 KiB
+# box2d4r, m=4 its two padded fp32 buffers and the B table take 142 KiB
 MXU_CUDA_TILE = (64, 128)
 
 

@@ -31,8 +31,8 @@ import torch
 
 from repro_torch.core.stencil import get_stencil
 
-__all__ = ["build", "library", "build_log", "call_band_kernel", "SMEM_LIMIT",
-           "fit_tile"]
+__all__ = ["build", "library", "build_log", "call_band_kernel",
+           "launch_shape", "SMEM_LIMIT", "fit_tile"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -48,6 +48,12 @@ ENTRY_POINTS = ("repro_fused_stencil_band", "repro_fused_stencil_band_db",
                 "repro_banded_fused_stencil")
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12
              + [ctypes.c_void_p] * 4)
+# "<entry>_shape": the same arguments plus an int[4] that receives the
+# launch the call would make (threads per CTA, shared bytes per CTA, CTAs
+# per SM from the occupancy API, CTAs in the grid); the kernels that size
+# their launch at run time have one
+SHAPE_ENTRY_POINTS = ("repro_fused_stencil_band_db_shape",
+                      "repro_banded_fused_stencil_shape")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"box": 0, "star": 0, "gradient": 1}
 
@@ -129,9 +135,10 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name in ENTRY_POINTS:
+            for name in ENTRY_POINTS + SHAPE_ENTRY_POINTS:
                 fn = getattr(lib, name)
-                fn.argtypes = _ARGTYPES
+                fn.argtypes = _ARGTYPES + (
+                    [ctypes.c_void_p] if name in SHAPE_ENTRY_POINTS else [])
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -177,15 +184,11 @@ def fit_tile(tile: Tuple[int, int], h_out: int, X: int, steps: int,
     return ty, tx
 
 
-def call_band_kernel(entry: str, band: torch.Tensor, name: str, steps: int,
-                     keep_top: bool, keep_bottom: bool,
-                     tile: Tuple[int, int], buffers: int,
-                     smem_bytes: Optional[Callable[[int, int], int]] = None,
-                     ) -> torch.Tensor:
-    """Check a CUDA band, allocate the output and launch ``entry`` on the
-    current stream.  Raises on what the kernels do not take and when the
-    launch fails.  ``buffers``/``smem_bytes`` size the tile as
-    :func:`fit_tile` does."""
+def _band_args(band: torch.Tensor, name: str, steps: int, keep_top: bool,
+               keep_bottom: bool, tile: Tuple[int, int], buffers: int,
+               smem_bytes: Optional[Callable[[int, int], int]]):
+    """Check a CUDA band and return ``(h_out, tile, args)``: the entry
+    points' arguments after the two pointers, the stream excluded."""
     if band.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a {band.device.type} tensor")
     if band.dim() != 2:
@@ -203,15 +206,53 @@ def call_band_kernel(entry: str, band: torch.Tensor, name: str, steps: int,
         raise ValueError(f"band of {H} rows too small for {m} fused steps")
     ty, tx = fit_tile(tile, h_out, X, m, r, band.element_size(), buffers,
                       smem_bytes)
-    out = torch.empty((h_out, X), dtype=band.dtype, device=band.device)
-    fn = getattr(library(), entry)
     ntaps = len(dy) if kind == 0 else 0
+    args = (_DTYPES[band.dtype], kind, H, X, h_out, r, m, int(keep_top),
+            int(keep_bottom), ty, tx, ntaps, dy.ctypes.data, dx.ctypes.data,
+            c.ctypes.data)
+    return h_out, (ty, tx), args
+
+
+def call_band_kernel(entry: str, band: torch.Tensor, name: str, steps: int,
+                     keep_top: bool, keep_bottom: bool,
+                     tile: Tuple[int, int], buffers: int,
+                     smem_bytes: Optional[Callable[[int, int], int]] = None,
+                     ) -> torch.Tensor:
+    """Check a CUDA band, allocate the output and launch ``entry`` on the
+    current stream.  Raises on what the kernels do not take and when the
+    launch fails.  ``buffers``/``smem_bytes`` size the tile as
+    :func:`fit_tile` does."""
+    h_out, (ty, tx), args = _band_args(band, name, steps, keep_top,
+                                       keep_bottom, tile, buffers, smem_bytes)
+    out = torch.empty((h_out, band.shape[1]), dtype=band.dtype,
+                      device=band.device)
+    fn = getattr(library(), entry)
     with torch.cuda.device(band.device):
         stream = torch.cuda.current_stream(band.device).cuda_stream
-        err = fn(band.data_ptr(), out.data_ptr(), _DTYPES[band.dtype], kind,
-                 H, X, h_out, r, m, int(keep_top), int(keep_bottom), ty, tx,
-                 ntaps, dy.ctypes.data, dx.ctypes.data, c.ctypes.data, stream)
+        err = fn(band.data_ptr(), out.data_ptr(), *args, stream)
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
-                           f"(band {H}x{X}, {name}, steps={m}, tile={ty}x{tx})")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} (band "
+                           f"{tuple(band.shape)}, {name}, steps={steps}, "
+                           f"tile={ty}x{tx})")
     return out
+
+
+def launch_shape(entry: str, band: torch.Tensor, name: str, steps: int,
+                 keep_top: bool, keep_bottom: bool, tile: Tuple[int, int],
+                 buffers: int,
+                 smem_bytes: Optional[Callable[[int, int], int]] = None,
+                 ) -> dict:
+    """The launch :func:`call_band_kernel` would make for ``entry`` on
+    this band, without launching: ``threads`` per CTA, ``smem_bytes``
+    per CTA, ``ctas_per_sm`` (the occupancy API's), ``grid`` (CTAs) and
+    the output ``tile``.  Only for the entries in ``SHAPE_ENTRY_POINTS``."""
+    _, (ty, tx), args = _band_args(band, name, steps, keep_top, keep_bottom,
+                                   tile, buffers, smem_bytes)
+    shape = (ctypes.c_int * 4)()
+    fn = getattr(library(), entry + "_shape")
+    with torch.cuda.device(band.device):
+        err = fn(band.data_ptr(), 0, *args, 0, ctypes.addressof(shape))
+    if err != 0:
+        raise RuntimeError(f"{entry}_shape failed: CUDA error {err}")
+    return dict(threads=shape[0], smem_bytes=shape[1], ctas_per_sm=shape[2],
+                grid=shape[3], tile=[ty, tx])

@@ -81,13 +81,29 @@ __device__ void load_tile(const T* __restrict__ in, T* tile, const BandGeom& g, 
   }
 }
 
-// One cell's update in fp32, rounded to T once by the caller.  Every
+// gradient2d on a cell c and its north/south/west/east neighbours:
+// c + dt * (gn+gs+gw+ge) * rsqrt(gn^2+gs^2+gw^2+ge^2 + eps).  Every
 // operation is the plain version's, in its order, through the _rn
 // intrinsics, which the compiler never contracts into FMAs: in fp32 the
 // kernel then computes what the PyTorch ops compute, bit for bit (rsqrtf
 // is what torch.rsqrt runs on CUDA).  That matters beyond taste:
 // gradient2d amplifies one-ulp differences by orders of magnitude over a
 // few hundred steps, so only equal arithmetic holds a long run to its oracle.
+__device__ __forceinline__ float gradient_update(float c, float n, float s, float w, float e) {
+  const float gn = __fsub_rn(n, c);
+  const float gs = __fsub_rn(s, c);
+  const float gw = __fsub_rn(w, c);
+  const float ge = __fsub_rn(e, c);
+  const float num = __fadd_rn(__fadd_rn(__fadd_rn(gn, gs), gw), ge);
+  const float den = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(gn, gn), __fmul_rn(gs, gs)), __fmul_rn(gw, gw)),
+      __fmul_rn(ge, ge));
+  const float step = __fmul_rn(__fmul_rn(0.1f, num), rsqrtf(__fadd_rn(den, 1e-3f)));
+  return __fadd_rn(c, step);
+}
+
+// One cell's update in fp32, rounded to T once by the caller, with the
+// linear taps summed in the plain version's order (same _rn rule).
 template <typename T, int KIND>
 __device__ __forceinline__ float update(const T* t, int idx, int tw, const Taps& taps) {
   if constexpr (KIND == kKindLinear) {
@@ -97,18 +113,8 @@ __device__ __forceinline__ float update(const T* t, int idx, int tw, const Taps&
     }
     return acc;
   } else {
-    // gradient2d: c + dt * (gn+gs+gw+ge) * rsqrt(gn^2+gs^2+gw^2+ge^2 + eps)
-    const float c = to_f(t[idx]);
-    const float gn = __fsub_rn(to_f(t[idx - tw]), c);
-    const float gs = __fsub_rn(to_f(t[idx + tw]), c);
-    const float gw = __fsub_rn(to_f(t[idx - 1]), c);
-    const float ge = __fsub_rn(to_f(t[idx + 1]), c);
-    const float num = __fadd_rn(__fadd_rn(__fadd_rn(gn, gs), gw), ge);
-    const float den = __fadd_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(gn, gn), __fmul_rn(gs, gs)), __fmul_rn(gw, gw)),
-        __fmul_rn(ge, ge));
-    const float step = __fmul_rn(__fmul_rn(0.1f, num), rsqrtf(__fadd_rn(den, 1e-3f)));
-    return __fadd_rn(c, step);
+    return gradient_update(to_f(t[idx]), to_f(t[idx - tw]), to_f(t[idx + tw]),
+                           to_f(t[idx - 1]), to_f(t[idx + 1]));
   }
 }
 
@@ -149,6 +155,13 @@ __device__ void store_tile(const T* tile, T* __restrict__ out, const BandGeom& g
     }
   }
 }
+
+// how each step's work is cut among a CTA's warps (the persistent and the
+// banded kernel: two numbers per step), planned on the host once per launch
+constexpr int kMaxSteps = 64;
+struct StepSplit {
+  short a[kMaxSteps], b[kMaxSteps];
+};
 
 // geometry and taps from the C entry points' arguments; false on bad input
 inline bool make_args(int H, int X, int h_out, int r, int m, int keep_top, int keep_bottom,

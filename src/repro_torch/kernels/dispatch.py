@@ -40,7 +40,8 @@ import torch
 
 from repro_torch.core.analytic import H100_SXM
 from repro_torch.core.stencil import Stencil, get_stencil
-from repro_torch.kernels import CUDA_TILE, MXU_CUDA_TILE, ceil_div
+from repro_torch.kernels import (
+    CUDA_TILE, DB_CUDA_TILE, MXU_CUDA_TILE, ceil_div)
 
 __all__ = [
     "DispatchPolicy", "KernelImpl", "KERNEL_IMPLS",
@@ -105,7 +106,7 @@ def _make_cuda(policy: DispatchPolicy) -> FusedStep:
 def _make_cuda_db(policy: DispatchPolicy) -> FusedStep:
     from repro_torch.kernels.stencil_multistep_db import fused_stencil_band_db
 
-    tile = policy.tile or CUDA_TILE
+    tile = policy.tile or DB_CUDA_TILE
 
     def step(band, name, steps, keep_top=False, keep_bottom=False):
         return fused_stencil_band_db(band, name, steps, keep_top=keep_top,
@@ -158,6 +159,7 @@ register_kernel_impl(KernelImpl(
     description="persistent CUDA kernel with a two-slot cp.async ring",
     make=_make_cuda_db,
     supports=_is_2d,
+    default_tile=DB_CUDA_TILE,
     smem_buffers=3,
 ))
 register_kernel_impl(KernelImpl(
@@ -322,9 +324,10 @@ def modeled_kernel_time(plan, hw, impl_name: str,
     this plan.  ``profile`` replaces the hardware's rates with this
     impl's measured ones when it carries a fit for it.
 
-    Overlap per impl: ``reference`` and ``cuda_db`` hide the copies
-    under compute (``max``); the single-buffered ``cuda`` and the
-    ``mxu`` recast serialise them (``sum``).
+    Overlap per impl: ``reference``, ``cuda_db`` and ``mxu`` hide the
+    copies under compute (``max``: the persistent kernels load the next
+    tile while computing the current one); the one-CTA-per-tile ``cuda``
+    serialises them (``sum``).
     """
     if impl_name not in KERNEL_IMPLS:
         raise KeyError(
@@ -351,7 +354,7 @@ def modeled_kernel_time(plan, hw, impl_name: str,
     else:
         compute_s = vpu_flops / peak_vpu
     mem_s = mem_bytes / bw_dmem
-    if impl_name in ("reference", "cuda_db"):
+    if impl_name in ("reference", "cuda_db", "mxu"):
         kernel_s = max(mem_s, compute_s)
     else:
         kernel_s = mem_s + compute_s

@@ -8,18 +8,30 @@ banded matmuls on the MXU::
 
     centre = sum_dy  t[dy : TH-2r+dy, :] @ B_dy,     B_dy[x+dx, x] = c[dy, dx]
 
-Source: ``csrc/banded_fused_stencil.cu``.  One CTA per output tile, the m
-steps in shared memory as in :mod:`repro_torch.kernels.stencil_multistep`,
-each step's centre computed with ``mma.sync`` TF32 in a 3xTF32 split (both
-operands, fp32 accumulation) so that it meets the reference's 2e-5; the
-band matrices are built in registers from the coefficients, never stored,
-and only their nonzero K-blocks are multiplied.  It is not bitwise equal
-to its plain version (the tensor cores sum in their own order), but it is
-deterministic: the same band always gives the same bits.
+Source: ``csrc/banded_fused_stencil.cu``.  Each step's centre is computed
+with ``mma.sync`` m16n8k8 TF32 in a 3xTF32 split (both operands, fp32
+accumulation) so that it meets the reference's 2e-5; the band matrices
+are built from the coefficients, never stored, and only their nonzero
+K-blocks are multiplied.  It is not bitwise equal to its plain version
+(the tensor cores sum in their own order), but it is deterministic: the
+same band always gives the same bits.
+
+Design for Hopper: persistent CTAs of 16 warps (one per SM at the
+default tile, whose two fp32 tiles and B table take 142 KiB) walk the
+tiles and load the next one with ``cp.async`` while the last step runs;
+a warp owns a strip of up to four fragments and loads each A K-block
+once per row offset with ``ldmatrix``, splitting it with two instructions
+per element (the value cut to TF32 and the exact remainder); the B
+fragments sit in a shared table; step ``s`` covers only the cells within
+``(m-1-s)r`` of the output tile (:func:`banded_step_grids`).
 
 Bound on an H100: operations for the wide box stencils (box2d4r at m=4:
 161 FLOP per cell update at the 67 TFLOP/s fp32 rate outweigh the band's
-bytes at 3.35 TB/s), bytes for the narrow ones.
+bytes at 3.35 TB/s), bytes for the narrow ones.  What holds the kernel
+above the time of its own MMAs at the dense TF32 peak
+(:func:`banded_mma_count`) is the issue of the A operand (loads and
+split) beside the MMAs; how near ``mma.sync`` itself comes to that peak
+on this card is not measured.
 
 :func:`mxu_wins` is the JAX package's napkin rule (same formula); with the
 H100's data-sheet rates it sends no registry stencil here, which is what
@@ -27,7 +39,7 @@ H100's data-sheet rates it sends no registry stencil here, which is what
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +48,8 @@ from repro_torch.core.stencil import Stencil, get_stencil
 from repro_torch.kernels import MXU_CUDA_TILE, ceil_div
 
 __all__ = ["banded_fused_stencil", "banded_fused_stencil_plain", "mxu_wins",
-           "banded_smem_bytes"]
+           "banded_smem_bytes", "banded_step_grids", "banded_mma_count",
+           "banded_launch_shape"]
 
 
 def mxu_wins(st: Stencil, tx: int = 128,
@@ -65,17 +78,48 @@ def _band_matrices(st: Stencil, tx: int) -> np.ndarray:
     return out
 
 
-def banded_smem_bytes(ty: int, tx: int, steps: int, radius: int,
-                      itemsize: int) -> int:
-    """Shared memory of one CTA of the kernel: two apron'd tiles padded
-    to whole ``mma`` fragments (``BandedLayout`` in the CUDA source)."""
+def banded_step_grids(ty: int, tx: int, steps: int,
+                      radius: int) -> List[Tuple[int, int, int, int]]:
+    """Each step's fragment grid in the kernel (``step_grid`` in the CUDA
+    source): ``(row0, col0, mblocks, nblocks)`` in centre coordinates.
+    Step ``s`` updates the cells within ``(steps-1-s)*radius`` of the
+    output tile (the trapezoid): rows from ``s*r``, columns from ``s*r``
+    rounded down to 4 (ldmatrix rows start on 16 bytes), in 16 x 8
+    fragments."""
     r = radius
-    th, tw = ty + 2 * steps * r, tx + 2 * steps * r
-    kblocks = ceil_div(8 + 2 * r, 8)
-    rows = 16 * ceil_div(th - 2 * r, 16) + 2 * r
-    cols = 8 * (ceil_div(tw - 2 * r, 8) + kblocks - 1)
+    hc = ty + 2 * (steps - 1) * r
+    wc = tx + 2 * (steps - 1) * r
+    grids = []
+    for s in range(steps):
+        lo = s * r
+        row0, col0 = lo, lo & ~3
+        grids.append((row0, col0, ceil_div(hc - lo - row0, 16),
+                      ceil_div(wc - lo - col0, 8)))
+    return grids
+
+
+def banded_smem_bytes(ty: int, tx: int, steps: int, radius: int) -> int:
+    """Shared memory of one CTA of the kernel (``banded_smem`` in the CUDA
+    source): two fp32 tiles (bf16 bands are widened on load) holding
+    every row and column some step's fragments read, the row stride
+    raised to 4 mod 32 words, plus the B table of (2r+1) x 32 lanes x 8
+    words."""
+    r = radius
+    rows = cols = 0
+    for row0, col0, mb, nb in banded_step_grids(ty, tx, steps, r):
+        rows = max(rows, row0 + 16 * mb + 2 * r)
+        cols = max(cols, col0 + 8 * (nb + 1))
     stride = ceil_div(cols - 4, 32) * 32 + 4
-    return 2 * rows * stride * itemsize
+    return 2 * rows * stride * 4 + (2 * r + 1) * 32 * 8 * 4
+
+
+def banded_mma_count(ty: int, tx: int, steps: int, radius: int) -> int:
+    """``mma.sync`` m16n8k8 instructions one tile's CTA issues: 3 (the
+    3xTF32 split) x 2 K-blocks x (2r+1) row offsets per fragment of
+    every step's grid."""
+    frags = sum(mb * nb for _, _, mb, nb in
+                banded_step_grids(ty, tx, steps, radius))
+    return frags * (2 * radius + 1) * 6
 
 
 def _banded_step_valid(x: torch.Tensor, st: Stencil, bands: torch.Tensor,
@@ -158,14 +202,30 @@ def banded_fused_stencil(
                                           keep_bottom)
     from repro_torch.kernels._build import call_band_kernel
 
-    itemsize = band.element_size()
-    out = call_band_kernel(
-        "repro_banded_fused_stencil", band, name, steps, keep_top,
-        keep_bottom, tile, buffers=2,
-        smem_bytes=lambda ty, tx: banded_smem_bytes(ty, tx, steps, st.radius,
-                                                    itemsize))
+    out = call_band_kernel("repro_banded_fused_stencil", band, name, steps,
+                           keep_top, keep_bottom, tile,
+                           **_launch_args(name, steps))
     banded_fused_stencil.launches += 1
     return out
 
 
 banded_fused_stencil.launches = 0
+
+
+def _launch_args(name: str, steps: int):
+    r = get_stencil(name).radius
+    return dict(buffers=2, smem_bytes=lambda ty, tx: banded_smem_bytes(
+        ty, tx, steps, r))
+
+
+def banded_launch_shape(band: torch.Tensor, name: str, steps: int,
+                        keep_top: bool = False, keep_bottom: bool = False,
+                        tile: Tuple[int, int] = MXU_CUDA_TILE) -> dict:
+    """The launch :func:`banded_fused_stencil` makes on this CUDA band
+    (threads and shared bytes per CTA, CTAs per SM, grid, tile), without
+    launching it; see :func:`repro_torch.kernels._build.launch_shape`."""
+    from repro_torch.kernels._build import launch_shape
+
+    return launch_shape("repro_banded_fused_stencil", band, name, steps,
+                        keep_top, keep_bottom, tile,
+                        **_launch_args(name, steps))

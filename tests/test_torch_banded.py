@@ -26,7 +26,7 @@ from repro_torch.kernels._build import SMEM_LIMIT, fit_tile
 from repro_torch.kernels.dispatch import DispatchPolicy, select_kernel
 from repro_torch.kernels.stencil_banded_mxu import (
     _band_matrices, banded_fused_stencil, banded_fused_stencil_plain,
-    banded_smem_bytes, mxu_wins)
+    banded_mma_count, banded_smem_bytes, banded_step_grids, mxu_wins)
 
 RNG = np.random.default_rng(11)
 LINEAR_2D = sorted(n for n, s in REGISTRY.items()
@@ -127,23 +127,49 @@ def test_wrapper_runs_plain_on_cpu_and_raises_elsewhere():
 
 @pytest.mark.parametrize("name", LINEAR_2D)
 def test_tile_fits_shared_memory(name):
-    """The padded two-buffer footprint of MXU_CUDA_TILE fits 227 KB up to
-    m = 4 for every linear stencil and m = 8 at the calibration's
-    box2d1r; deeper fusion halves the tile instead of failing."""
+    """The Python mirror of the kernel's shared memory (``banded_layout``
+    and ``banded_smem`` in the CUDA source): two fp32 tiles that hold
+    every row and column some step's trapezoid grid reads, the row stride
+    4 mod 32 words, plus the B table; fit_tile keeps it within 227 KB at
+    m in {1, 2, 4, 8} (MXU_CUDA_TILE itself up to m = 4)."""
     r = get_stencil(name).radius
-    for steps in (1, 2, 4):
-        assert banded_smem_bytes(*MXU_CUDA_TILE, steps, r, 4) <= SMEM_LIMIT
-    assert banded_smem_bytes(*MXU_CUDA_TILE, 8, 1, 4) <= SMEM_LIMIT
+    for steps in (1, 2, 4, 8):
+        ty, tx = fit_tile(MXU_CUDA_TILE, 10 ** 4, 10 ** 5, steps, r, 4, 2,
+                          lambda a, b: banded_smem_bytes(a, b, steps, r))
+        if steps <= 4:
+            assert (ty, tx) == MXU_CUDA_TILE
+        smem = banded_smem_bytes(ty, tx, steps, r)
+        assert smem <= SMEM_LIMIT
+        # the formula, restated: rows and columns the fragments read
+        grids = banded_step_grids(ty, tx, steps, r)
+        rows = max(r0 + 16 * mb + 2 * r for r0, _, mb, _ in grids)
+        cols = max(c0 + 8 * (nb + 1) for _, c0, _, nb in grids)
+        stride = cols + (4 - cols) % 32
+        assert stride % 32 == 4 and stride >= cols
+        assert smem == 2 * rows * stride * 4 + (2 * r + 1) * 1024
+        # they cover the apron'd tile, and each step's grid covers the
+        # cells within (steps-1-s)*r of the output tile, from 16-byte
+        # aligned columns
+        hc, wc = ty + 2 * (steps - 1) * r, tx + 2 * (steps - 1) * r
+        assert rows >= hc + 2 * r and cols >= wc + 2 * r
+        for s, (r0, c0, mb, nb) in enumerate(grids):
+            assert r0 == s * r and c0 % 4 == 0 and c0 <= s * r
+            assert r0 + 16 * mb >= hc - s * r and c0 + 8 * nb >= wc - s * r
+    # deeper fusion halves the tile instead of failing
+    ty, tx = fit_tile(MXU_CUDA_TILE, 10 ** 4, 10 ** 5, 16, r, 4, 2,
+                      lambda a, b: banded_smem_bytes(a, b, 16, r))
+    assert banded_smem_bytes(ty, tx, 16, r) <= SMEM_LIMIT
 
-    def fp(ty, tx):
-        return banded_smem_bytes(ty, tx, 16, r, 4)
 
-    ty, tx = fit_tile(MXU_CUDA_TILE, 10 ** 4, 10 ** 5, 16, r, 4, 2, fp)
-    assert fp(ty, tx) <= SMEM_LIMIT
-    # the footprint covers the plain apron'd tiles it pads
-    ty, tx = MXU_CUDA_TILE
-    assert banded_smem_bytes(ty, tx, 4, r, 4) >= 2 * (ty + 8 * r) * (
-        tx + 8 * r) * 4
+def test_mma_count_of_the_trapezoid():
+    """box2d4r, m=4, 64 x 128 tile: the step grids are 6x19, 5x18, 5x17
+    and 4x16 fragments (353, a fifth fewer than 4 x 6 x 19 = 456 over
+    the whole centre), 54 MMAs each; shared memory 104 rows x 164 words
+    x 2 buffers + the 9 KiB B table."""
+    assert banded_step_grids(64, 128, 4, 4) == [
+        (0, 0, 6, 19), (4, 4, 5, 18), (8, 8, 5, 17), (12, 12, 4, 16)]
+    assert banded_mma_count(64, 128, 4, 4) == 353 * 9 * 6
+    assert banded_smem_bytes(64, 128, 4, 4) == 2 * 104 * 164 * 4 + 9 * 1024
 
 
 # ----------------------------------------------- the precision hazard
@@ -152,21 +178,31 @@ def test_tile_fits_shared_memory(name):
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """fp32 rounded to TF32 (10 explicit mantissa bits), round to nearest
     with ties away from zero on the 13 dropped bits — what
-    ``cvt.rna.tf32.f32`` does."""
+    ``cvt.rna.tf32.f32`` does (the kernel's split of the coefficients)."""
     bits = x.contiguous().view(torch.int32)
     rounded = (bits + 0x1000) & ~0x1FFF
     return rounded.view(torch.float32)
 
 
+def _tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """fp32 cut to TF32 (the 13 low bits dropped): the kernel's split of
+    the tile's values, and what the tensor cores read of a low part."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
 def _emulated_step(x: torch.Tensor, c: torch.Tensor, split: bool):
     """One valid step of a linear stencil as the kernel's products:
-    plain TF32 (a*b) or the 3xTF32 split (a_lo*b_hi + a_hi*b_lo +
-    a_hi*b_hi), each product exact and the sum in float64 (the tensor
-    cores' fp32 accumulation is not the point here)."""
+    plain TF32 (a*b) or the kernel's 3xTF32 split (a_lo*b_hi + a_hi*b_lo
+    + a_hi*b_hi, with a cut and b rounded to TF32), each product exact
+    and the sum in float64 (the tensor cores' fp32 accumulation is not
+    the point here)."""
     n = c.shape[0]
     h, w = x.shape
-    a_hi = _tf32(x)
-    a_lo = _tf32(x - a_hi)
+    if split:
+        a_hi = _tf32_cut(x)
+        a_lo = _tf32_cut(x - a_hi)
+    else:
+        a_hi = _tf32(x)
     b_hi = _tf32(c)
     b_lo = _tf32(c - b_hi)
     acc = torch.zeros((h - n + 1, w - n + 1), dtype=torch.float64)
@@ -183,7 +219,8 @@ def _emulated_step(x: torch.Tensor, c: torch.Tensor, split: bool):
 
 def test_tf32_split_is_what_meets_the_tolerance():
     """One TF32 product per tap misses the reference's 2e-5 on box2d4r;
-    the 3xTF32 split of both operands meets it with room to spare."""
+    the kernel's 3xTF32 split (the tile's values cut, the coefficients
+    rounded) meets it with room to spare."""
     st = get_stencil("box2d4r")
     c = torch.from_numpy(st.coeffs.astype(np.float32))
     assert not torch.equal(_tf32(c), c)       # coefficients not TF32-exact
@@ -196,3 +233,7 @@ def test_tf32_split_is_what_meets_the_tolerance():
     # the emulated rounding is TF32: 10 explicit bits survive
     v = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -12], dtype=torch.float32)
     assert _tf32(v).tolist() == [1.0 + 2.0 ** -10, 1.0]
+    v = torch.tensor([1.0 + 2.0 ** -10 + 2.0 ** -11], dtype=torch.float32)
+    assert _tf32_cut(v).tolist() == [1.0 + 2.0 ** -10]
+    # a cut part and its exact remainder give the value back
+    assert torch.equal(_tf32_cut(x) + (x - _tf32_cut(x)), x)

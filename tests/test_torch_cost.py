@@ -93,6 +93,14 @@ def test_kernel_terms_equal_jax_for_mapped_impls(name, tile):
             want = jax_dispatch.modeled_kernel_time(jplan, hw, jimpl, tile)
             got = dispatch.modeled_kernel_time(pplan, _port_hw(hw), pimpl,
                                                tile)
+            if pimpl == "mxu" and want is not None:
+                # the same memory and compute terms; the port's banded
+                # kernel is persistent and loads the next tile under the
+                # current one's last step, so it overlaps them (max) where
+                # the TPU kernel serialises them (sum)
+                assert got[1:] == want[1:], (engine, tile)
+                assert got[0] == max(want[1], want[2])
+                continue
             assert got == want, (engine, jimpl, tile)
         for op_j, op_p in zip(jplan.ops, pplan.ops):
             if type(op_j).__name__ != "FusedKernel":
@@ -209,11 +217,24 @@ def _mapped(configs):
     return [dict(c, kernel_impl=IMPL_MAP[c["kernel_impl"]]) for c in configs]
 
 
-def test_tune_rankings_equal_jax_on_golden_geometries():
+def test_tune_rankings_equal_jax_on_golden_geometries(monkeypatch):
     """``tune(budget=0)`` under the synthetic paper-RTX3080 profile ranks
     like the JAX package's row sweep, config for config and time for
     time, on the golden geometries of tests/test_tune.py (at one tile both
-    packages model: their default tiles differ)."""
+    packages model: their default tiles differ).  The one modeled
+    difference is carried into the JAX sweep: the port's banded kernel
+    loads the next tile under the current one (max of the memory and
+    compute terms), the TPU kernel serialises them (sum)."""
+    jax_kernel_time = jax_dispatch.modeled_kernel_time
+
+    def with_port_overlap(plan, hw, impl_name, *args, **kwargs):
+        out = jax_kernel_time(plan, hw, impl_name, *args, **kwargs)
+        if impl_name == "mxu" and out is not None:
+            return max(out[1], out[2]), out[1], out[2]
+        return out
+
+    monkeypatch.setattr(jax_dispatch, "modeled_kernel_time",
+                        with_port_overlap)
     prof = synthetic_profile()
     jst = jax_get_stencil("box2d1r")
     tile_grid = ((32, 128),)

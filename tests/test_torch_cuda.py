@@ -27,8 +27,10 @@ from repro_torch.kernels.dispatch import DispatchPolicy
 from repro_torch.kernels.stencil_multistep import (
     fused_stencil_band, fused_stencil_band_plain)
 from repro_torch.kernels.stencil_banded_mxu import (
-    banded_fused_stencil, banded_fused_stencil_plain)
-from repro_torch.kernels.stencil_multistep_db import fused_stencil_band_db
+    banded_fused_stencil, banded_fused_stencil_plain, banded_launch_shape,
+    banded_smem_bytes)
+from repro_torch.kernels.stencil_multistep_db import (
+    db_launch_shape, db_smem_bytes, fused_stencil_band_db)
 
 RNG = np.random.default_rng(17)
 KERNELS = {"cuda": fused_stencil_band, "cuda_db": fused_stencil_band_db,
@@ -95,6 +97,87 @@ def test_banded_kernel_matches_plain(dev, name):
         torch.cuda.synchronize()
         assert got.dtype == torch.bfloat16
         assert _rel_err(got, ref) <= 3e-2
+
+
+@pytest.mark.parametrize("name", ["box2d1r", "box2d2r", "box2d3r",
+                                  "box2d4r", "star2d1r", "star2d4r",
+                                  "gradient2d"])
+def test_redesigned_kernels_over_radii_depths_and_grids(dev, name):
+    """B2 (``cuda_db``) bitwise equal to its plain version in fp32 and B3
+    (``mxu``, linear stencils) within 2e-5 and the same bits in two
+    launches, at r = 1..4 and m in {1, 2, 4, 8}, on ragged bands (one or
+    two tiles: fewer than the persistent grid's CTAs) and on a band whose
+    tile count is not a multiple of the grid, with the keep flags; bf16
+    up to m = 4 (the plain version rounds every operation to bf16, the
+    kernels once per step, and gradient2d spreads that difference past
+    the 3e-2 bound over 8 steps)."""
+    st = get_stencil(name)
+    for steps in (1, 2, 4, 8):
+        mr = steps * st.radius
+        for (H, X), kt, kb in [((37, 131), False, True),
+                               ((41, 97), True, False),
+                               ((41, 97), True, True),
+                               ((2 * mr + 32 * 25, 128 * 10 + 5), False,
+                                False)]:
+            if H - 2 * mr + (kt + kb) * mr <= 0 or X <= 2 * mr:
+                continue
+            x = torch.from_numpy(RNG.standard_normal((H, X)).astype(
+                np.float32)).to(dev)
+            ref = fused_stencil_band_plain(x, name, steps, kt, kb)
+            got = fused_stencil_band_db(x, name, steps, kt, kb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (name, H, X, steps, kt, kb)
+            shape = db_launch_shape(x, name, steps, kt, kb)
+            assert shape["grid"] >= 1 and shape["ctas_per_sm"] >= 1
+            if st.is_linear:
+                ref = banded_fused_stencil_plain(x, name, steps, kt, kb)
+                got = banded_fused_stencil(x, name, steps, kt, kb)
+                torch.cuda.synchronize()
+                assert float((got - ref).abs().max()) <= 2e-5, (
+                    name, H, X, steps, kt, kb)
+                assert torch.equal(banded_fused_stencil(x, name, steps, kt,
+                                                        kb), got)
+            if steps > 4:
+                continue
+            xb = x.to(torch.bfloat16)
+            for fn, plain in ((fused_stencil_band_db,
+                               fused_stencil_band_plain),
+                              (banded_fused_stencil,
+                               banded_fused_stencil_plain)):
+                if fn is banded_fused_stencil and not st.is_linear:
+                    continue
+                got = fn(xb, name, steps, kt, kb)
+                ref = plain(xb, name, steps, kt, kb)
+                torch.cuda.synchronize()
+                assert got.dtype == torch.bfloat16
+                assert _rel_err(got, ref) <= 3e-2, (fn.__name__, name, steps)
+
+
+def test_persistent_grid_against_the_tile_count(dev):
+    """The persistent kernel's grid is the occupancy API's CTAs per SM
+    times the SM count, cut to the tile count: a one-tile band gets one
+    CTA, and a band of 1000 gradient2d tiles (not a multiple of the grid)
+    is walked in whole and stays bitwise equal."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    small = torch.zeros((40, 100), device=dev)
+    shape = db_launch_shape(small, "gradient2d", 4, tile=CUDA_TILE)
+    assert shape["grid"] == 1 and shape["tile"] == [32, 100]
+    assert shape["smem_bytes"] == db_smem_bytes(32, 100, 4, 1, 4)
+    x = torch.from_numpy(RNG.standard_normal((808, 5120)).astype(
+        np.float32)).to(dev)
+    shape = db_launch_shape(x, "gradient2d", 4, tile=CUDA_TILE)
+    assert shape["grid"] == min(1000, shape["ctas_per_sm"] * sms)
+    assert 1000 % shape["grid"] != 0
+    got = fused_stencil_band_db(x, "gradient2d", 4, tile=CUDA_TILE)
+    assert torch.equal(got, fused_stencil_band_plain(x, "gradient2d", 4))
+    # the banded kernel is persistent too, its shared memory as mirrored
+    shape = banded_launch_shape(x, "box2d4r", 4)
+    assert shape["smem_bytes"] == banded_smem_bytes(64, 128, 4, 4)
+    tiles = -(-(808 - 32) // 64) * 40
+    assert shape["grid"] == min(tiles, shape["ctas_per_sm"] * sms)
+    got = banded_fused_stencil(x, "box2d4r", 4)
+    ref = banded_fused_stencil_plain(x, "box2d4r", 4)
+    assert float((got - ref).abs().max()) <= 2e-5
 
 
 def test_kernels_reject_what_they_do_not_take(dev):

@@ -14,14 +14,14 @@ import torch
 
 from repro.core.stencil import REGISTRY
 from repro.kernels.ref import multi_step_band as jax_multi_step_band
-from repro_torch.kernels import CUDA_TILE
+from repro_torch.kernels import CUDA_TILE, DB_CUDA_TILE
 from repro_torch.kernels._build import SMEM_LIMIT, fit_tile
 from repro_torch.kernels.dispatch import DispatchPolicy, select_kernel
 from repro_torch.kernels.ops import fused_stencil
 from repro_torch.kernels.stencil_multistep import (
     fused_stencil_band, fused_stencil_band_plain)
 from repro_torch.kernels.stencil_multistep_db import (
-    fused_stencil_band_db, fused_stencil_band_db_plain)
+    db_smem_bytes, fused_stencil_band_db, fused_stencil_band_db_plain)
 
 RNG = np.random.default_rng(7)
 KERNELS = [fused_stencil_band, fused_stencil_band_db]
@@ -157,3 +157,34 @@ def test_cuda_tile_fits_shared_memory(name):
     assert 3 * (ty + 128) * (tx + 128) * 4 <= SMEM_LIMIT
     # tiny bands cut the tile to the band
     assert fit_tile(CUDA_TILE, 5, 40, 2, r, 4, 2) == (5, 40)
+
+
+@pytest.mark.parametrize("name", NAMES_2D)
+def test_persistent_kernel_shared_memory(name):
+    """The Python mirror of the persistent kernel's shared memory (three
+    tiles whose rows start at the 16-byte-aligned column at or left of
+    the apron'd tile): every shift of the origin fits a row, rows are
+    whole 16-byte chunks, and DB_CUDA_TILE fits 227 KB at m <= 4 in fp32
+    and bf16; deeper fusion halves the tile."""
+    r = REGISTRY[name].radius
+    for itemsize in (4, 2):
+        vec = 16 // itemsize
+        for steps in (1, 2, 4):
+            ty, tx = DB_CUDA_TILE
+            tw = tx + 2 * steps * r
+            smem = db_smem_bytes(ty, tx, steps, r, itemsize)
+            stride = smem // (3 * (ty + 2 * steps * r) * itemsize)
+            assert smem == 3 * (ty + 2 * steps * r) * stride * itemsize
+            assert stride % vec == 0 and stride >= tw + vec - 1
+            assert stride < tw + 2 * vec - 1
+            assert smem <= SMEM_LIMIT
+
+            def fp(a, b):
+                return db_smem_bytes(a, b, steps, r, itemsize)
+            assert fit_tile(DB_CUDA_TILE, 10 ** 4, 10 ** 5, steps, r,
+                            itemsize, 3, fp) == DB_CUDA_TILE
+    ty, tx = fit_tile(DB_CUDA_TILE, 10 ** 4, 10 ** 5, 16, 4, 4, 3,
+                      lambda a, b: db_smem_bytes(a, b, 16, 4, 4))
+    assert db_smem_bytes(ty, tx, 16, 4, 4) <= SMEM_LIMIT
+    # gradient2d at m = 4: 72 rows of 132 fp32 words (128 + 3 rounded up)
+    assert db_smem_bytes(64, 120, 4, 1, 4) == 3 * 72 * 132 * 4
