@@ -15,9 +15,14 @@ Phases, none of them caught — any failure exits non-zero:
    JAX package's bound for it), all in bf16 (<= 3e-2 relative); then
    CUDA-event times of each kernel, its plain version, the library
    yardstick, the bucketing pad and the host<->device copies at the main
-   path's band shape, and of all three kernels on the box2d4r main band
+   path's band shape; the one-CTA-per-tile kernel (``cuda``) and the
+   persistent ring (``cuda_db``) on each other's band, the ring-vs-
+   occupancy yardstick; and all three kernels on the box2d4r main band
    (with the time the banded kernel's own MMAs would take at the dense
-   TF32 peak, and the launch shape of the two persistent kernels).
+   TF32 peak).  Every kernel's launch shape is recorded
+   (threads and shared bytes per CTA, CTAs per SM, grid, tile, and for
+   ``cuda`` the load path: TMA on the main bands, with >= 3 CTAs per SM
+   at box2d1r, checked).
 3. main path: SO2DR gradient2d on a 38400 x 38400 fp32 domain (the
    paper's out-of-core size), d=4, k_off=160, k_on=4, n=320, default
    dispatch (auto -> cuda_db), through the double-buffered and the eager
@@ -36,9 +41,9 @@ Phases, none of them caught — any failure exits non-zero:
 
 The line before the last is the card's name and power limit; before it,
 a ``{"kernels": [...]}`` JSON line, and before that the launch shape of
-the persistent kernels (threads and shared bytes per CTA, CTAs per SM
-from the occupancy API, grid).  The last line is
-``{"ok": true, "device": {...}}``.  The full record goes to
+the kernels (threads and shared bytes per CTA, CTAs per SM from the
+occupancy API, grid, tile, load path) and the build's seconds.  The last
+line is ``{"ok": true, "device": {...}}``.  The full record goes to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -74,7 +79,8 @@ from repro_torch.kernels.stencil_banded_mxu import (  # noqa: E402
     banded_fused_stencil, banded_fused_stencil_plain, banded_launch_shape,
     banded_mma_count, banded_smem_bytes)
 from repro_torch.kernels.stencil_multistep import (  # noqa: E402
-    fused_stencil_band, fused_stencil_band_plain)
+    band_launch_shape, band_uses_tma, fused_stencil_band,
+    fused_stencil_band_plain)
 from repro_torch.kernels.stencil_multistep_db import (  # noqa: E402
     db_launch_shape, fused_stencil_band_db, fused_stencil_band_db_plain)
 
@@ -196,6 +202,8 @@ def phase_kernels_vs_plain() -> None:
     cases = 0
     bitwise = dict.fromkeys(KERNELS, 0)
     fp32_cases = dict.fromkeys(KERNELS, 0)
+    # the one-CTA-per-tile kernel's fp32 cases by load path: [cases, bitwise]
+    by_load = {"tma": [0, 0], "cp.async": [0, 0]}
     with phase("kernels_vs_plain"):
         for name, steps, (H, X), kt, kb in itertools.product(
                 ("box2d1r", "box2d4r", "star2d3r", "gradient2d"), (1, 2, 4),
@@ -228,13 +236,20 @@ def phase_kernels_vs_plain() -> None:
                     if key == "fp32":
                         fp32_cases[impl] += 1
                         bitwise[impl] += int(torch.equal(got, ref))
+                        if impl == "cuda":
+                            load = band_launch_shape(xb, name, steps, kt,
+                                                     kb)["load"]
+                            by_load[load][0] += 1
+                            by_load[load][1] += int(torch.equal(got, ref))
+        check(all(n > 0 for n, _ in by_load.values()), by_load)
         RESULT["kernels_vs_plain"] = dict(
             cases=cases, fp32_cases=fp32_cases, fp32_bitwise=bitwise,
-            worst_err=worst,
+            cuda_fp32_by_load=by_load, worst_err=worst,
             err_kind="mxu fp32: max abs; else max rel")
         log(f"{cases} kernel-vs-plain cases pass; fp32 bitwise equal "
-            f"{bitwise} of {fp32_cases}; worst err (mxu fp32 absolute, "
-            f"else relative) {worst}")
+            f"{bitwise} of {fp32_cases} (cuda by load path [cases, "
+            f"bitwise]: {by_load}); worst err (mxu fp32 absolute, else "
+            f"relative) {worst}")
 
 
 def main_band_shape(plan) -> tuple:
@@ -294,9 +309,18 @@ def mma_ms(name: str, shape, steps: int, tile=None) -> float:
 def kernel_launch_shape(impl: str, name: str, band: torch.Tensor,
                         m: int) -> dict:
     """Threads and shared memory per CTA, CTAs per SM (the occupancy
-    API's) and the grid of a redesigned kernel's launch on this band."""
-    fn = db_launch_shape if impl == "cuda_db" else banded_launch_shape
-    return fn(band, name, m)
+    API's), the grid and the tile of a kernel's launch on this band; for
+    ``cuda`` also its load path, held to ``band_uses_tma``."""
+    fn = {"cuda": band_launch_shape, "cuda_db": db_launch_shape,
+          "mxu": banded_launch_shape}[impl]
+    shape = fn(band, name, m)
+    if impl == "cuda":
+        r = get_stencil(name).radius
+        ty, tx = shape["tile"]
+        tma = band_uses_tma(band.shape[1], band.element_size(),
+                            band.data_ptr(), (ty + 2 * m * r, tx + 2 * m * r))
+        check(shape["load"] == ("tma" if tma else "cp.async"), shape, tma)
+    return shape
 
 
 def kernel_record(impl: str, name: str, band: torch.Tensor, m: int) -> dict:
@@ -321,19 +345,34 @@ def kernel_record(impl: str, name: str, band: torch.Tensor, m: int) -> dict:
     return rec
 
 
+def other_kernel_ms(impl: str, name: str, band: torch.Tensor, m: int) -> dict:
+    """The ring-vs-occupancy yardstick: ``impl`` on another main path's
+    band, held bitwise to its plain version, then timed."""
+    k = KERNELS[impl]
+    got = k["fn"](band, name, m)
+    ref = k["plain"](band, name, m)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), impl, name)
+    del got, ref
+    return dict(ms=cuda_ms(lambda: k["fn"](band, name, m), reps=10),
+                launch_shape=kernel_launch_shape(impl, name, band, m))
+
+
 def phase_kernel_times(size: int) -> None:
     dev = torch.device("cuda")
-    timings = {}
+    timings, yardstick = {}, {}
     with phase("kernel_times"):
-        for impl, name in (("cuda_db", "gradient2d"), ("cuda", "box2d1r")):
+        for impl, name, other in (("cuda_db", "gradient2d", "cuda"),
+                                  ("cuda", "box2d1r", "cuda_db")):
             plan = compile_plan("so2dr", get_stencil(name), size, size, 160,
                                 4, 160, 4)
             (H, X), m = main_band_shape(plan)
             band = torch.randn((H, X), generator=torch.Generator(
                 device=dev).manual_seed(3), device=dev)
             rec = kernel_record(impl, name, band, m)
-            if impl == "cuda_db":
-                rec["launch_shape"] = kernel_launch_shape(impl, name, band, m)
+            rec["launch_shape"] = kernel_launch_shape(impl, name, band, m)
+            yardstick[name] = {impl: {"ms": rec["ms"]},
+                               other: other_kernel_ms(other, name, band, m)}
             rec["library_ms"] = None
             if name == "box2d1r":
                 rec["library_ms"] = conv_one_step_ms(band, name)
@@ -348,8 +387,12 @@ def phase_kernel_times(size: int) -> None:
                 f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} "
                 f"ms ({rec['bound_by']}), library {rec['library_ms']}, "
                 f"pad {rec['bucket_pad_ms']:.3f} ms, max|err| "
-                f"{rec['max_abs_err']}")
+                f"{rec['max_abs_err']}; {other} on the same band "
+                f"{yardstick[name][other]['ms']:.3f} ms")
             del band
+        sh = timings["cuda"]["launch_shape"]
+        check(sh["load"] == "tma" and sh["ctas_per_sm"] >= 3, sh)
+        RESULT["ring_vs_occupancy"] = yardstick
         # host<->device copy rates at the band's size
         H, X = timings["cuda_db"]["band"]
         # touched pages (np.ones): the executors copy from and into host
@@ -414,8 +457,7 @@ def phase_box2d4r_times(size: int) -> None:
         library_ms = conv_one_step_ms(band, name)
         for impl in ("mxu", "cuda_db", "cuda"):
             rec = kernel_record(impl, name, band, m)
-            if impl in ("mxu", "cuda_db"):
-                rec["launch_shape"] = kernel_launch_shape(impl, name, band, m)
+            rec["launch_shape"] = kernel_launch_shape(impl, name, band, m)
             rec["library_ms"] = library_ms
             rec["library_call"] = "F.conv2d, one step, TF32 off"
             if impl == "mxu":
@@ -429,6 +471,8 @@ def phase_box2d4r_times(size: int) -> None:
                 + (f", mma count at TF32 peak {rec['mma_ms_at_tf32_peak']:.3f}"
                    f" ms" if impl == "mxu" else ""))
         del band
+        check(timings["cuda"]["launch_shape"]["load"] == "tma",
+              timings["cuda"]["launch_shape"])
         fastest = min(timings, key=lambda i: timings[i]["ms"])
         auto = select_kernel(name, m, DispatchPolicy(), device=dev)[0]
         RESULT["box2d4r_times"] = dict(kernels=timings, fastest=fastest,
@@ -618,17 +662,21 @@ def main(argv=None) -> int:
     RESULT.update(line)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(RESULT, f, indent=1, default=str)
-    log(f"total {RESULT['total_s']:.1f} s")
+    log(f"total {RESULT['total_s']:.1f} s, of it the kernels' build "
+        f"{RESULT['build_s']:.1f} s")
+    box4 = RESULT["box2d4r_times"]["kernels"]
     for impl, name, rec in (
+            ("cuda", "box2d1r", RESULT["kernel_times"]["cuda"]),
             ("cuda_db", "gradient2d", RESULT["kernel_times"]["cuda_db"]),
-            ("cuda_db", "box2d4r",
-             RESULT["box2d4r_times"]["kernels"]["cuda_db"]),
-            ("mxu", "box2d4r", RESULT["box2d4r_times"]["kernels"]["mxu"])):
+            ("cuda", "box2d4r", box4["cuda"]),
+            ("cuda_db", "box2d4r", box4["cuda_db"]),
+            ("mxu", "box2d4r", box4["mxu"])):
         sh = rec["launch_shape"]
         log(f"launch shape {KERNELS[impl]['name']} on {name} "
             f"{rec['band'][0]}x{rec['band'][1]}: {sh['threads']} threads and "
             f"{sh['smem_bytes']} B shared per CTA, {sh['ctas_per_sm']} CTAs "
-            f"per SM, grid {sh['grid']}, tile {sh['tile'][0]}x{sh['tile'][1]}")
+            f"per SM, grid {sh['grid']}, tile {sh['tile'][0]}x{sh['tile'][1]}"
+            + (f", load {sh['load']}" if "load" in sh else ""))
     print(json.dumps(line))
     print(RESULT["card"])
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ middle-chunk call of ``compile_plan("so2dr", stencil, size, size, ...)``,
 ``k_on = 4``), fp32, from a seeded ``torch.randn``.  Every case first
 holds the kernel to its plain version on that band (``cuda``/``cuda_db``
 bitwise, ``mxu`` within 2e-5 absolute), then reports CUDA-event times
-(mean of ``--reps`` launches after one warm-up).  One JSON line per case;
+(mean of ``--reps`` launches after one warm-up) and, where the checkout
+has them, the launch shape (``cuda``: ``band_launch_shape``, ``cuda_db``:
+``db_launch_shape``).  One JSON line per case;
 the last line names the card and its power limit.  It needs only the
 port's public kernel wrappers, so the same script times an older checkout
 of the port (run it from that checkout's root).
@@ -37,7 +39,15 @@ from repro_torch.core.stencil import get_stencil  # noqa: E402
 CONFIGS = {"box2d4r": (4, 40, 80)}
 DEFAULT = (4, 160, 160)
 DEFAULT_CASES = ("cuda_db:gradient2d", "cuda_db:box2d4r", "mxu:box2d4r",
-                 "cuda:box2d1r")
+                 "cuda:box2d1r", "cuda:box2d4r")
+
+
+def launch_shape(impl: str):
+    """The kernel's launch-shape mirror, or None in a checkout without it."""
+    from repro_torch.kernels import stencil_multistep, stencil_multistep_db
+    return {"cuda": getattr(stencil_multistep, "band_launch_shape", None),
+            "cuda_db": getattr(stencil_multistep_db, "db_launch_shape",
+                               None)}.get(impl)
 
 
 def kernels():
@@ -113,6 +123,9 @@ def main(argv=None) -> int:
             if ok:
                 rec["ms"] = cuda_ms(lambda: fn(band, name, m, **kw),
                                     args.reps)
+                shape = launch_shape(impl)
+                if shape is not None:
+                    rec["launch_shape"] = shape(band, name, m, **kw)
             print(json.dumps(rec), flush=True)
             if not ok:
                 return 1

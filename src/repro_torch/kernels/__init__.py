@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels for the paper's compute hot-spot.
 
-* stencil_multistep     — k_on-step fused kernel (shared-memory-resident
-                          steps), CUDA C++ in ``csrc/fused_stencil_band.cu``
+* stencil_multistep     — k_on-step fused kernel, one CTA per tile loaded
+                          by TMA, CUDA C++ in ``csrc/fused_stencil_band.cu``
 * stencil_multistep_db  — persistent variant with a two-slot ``cp.async``
                           ring, ``csrc/fused_stencil_band_db.cu``
 * stencil_banded_mxu    — linear stencils as banded products on the
@@ -18,8 +18,8 @@ the CUDA library is built the first time a kernel launches.
 """
 from __future__ import annotations
 
-__all__ = ["DEFAULT_TILE", "MXU_TILE", "CUDA_TILE", "DB_CUDA_TILE",
-           "MXU_CUDA_TILE", "ceil_div"]
+__all__ = ["DEFAULT_TILE", "MXU_TILE", "CUDA_TILE", "BAND_CUDA_TILE",
+           "DB_CUDA_TILE", "MXU_CUDA_TILE", "ceil_div", "walk_row_stride"]
 
 # the JAX package's VMEM tile (rows, lanes); kept for planner parity.  At
 # fp32 it is 512 KiB before the apron — more than the 227 KB of shared
@@ -28,12 +28,16 @@ DEFAULT_TILE = (256, 512)
 # the JAX package's banded-matmul tile: lane dim 128 matches the TPU's
 # systolic array; kept for parity of the cost model
 MXU_TILE = (DEFAULT_TILE[0], 128)
-# output tile (rows, columns) of the CUDA kernels: 128 columns give each
-# warp four coalesced 128-byte row segments; with the worst 2-D apron
+# the first CUDA kernels' output tile (rows, columns), now the registry's
+# default for an impl without a tile of its own: with the worst 2-D apron
 # (box2d4r, 4 fused steps: 2*m*r = 32) one fp32 buffer is
-# (32+32) x (128+32) x 4 B = 40 KiB, so the fused kernel's two buffers
-# and the persistent kernel's three fit a block's 227 KB.
+# (32+32) x (128+32) x 4 B = 40 KiB, so two or three fit a block's 227 KB.
 CUDA_TILE = (32, 128)
+# output tile of the one-CTA-per-tile kernel: TMA loads the apron'd tile
+# as one box of at most 256 x 256, so the tile plus its apron stays
+# inside that; at box2d1r and gradient2d, m=4 its two fp32 buffers take
+# 74 KiB, three CTAs per SM
+BAND_CUDA_TILE = (64, 120)
 # output tile of the persistent kernel: its warps walk 32-column groups of
 # each step's region, and at gradient2d, m=4 a 120-column tile makes the
 # first step's region 126 columns wide (4 groups) where 128 would make it
@@ -48,3 +52,11 @@ MXU_CUDA_TILE = (64, 128)
 
 def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def walk_row_stride(tw: int, itemsize: int) -> int:
+    """Elements per shared row of the column-walk kernels (``db_stride``
+    in ``csrc/stencil_walk.cuh``): an apron'd row of ``tw`` cells from the
+    16-byte-aligned column at or left of it, in whole 16-byte chunks."""
+    vec = 16 // itemsize
+    return ceil_div(tw + vec - 1, vec) * vec

@@ -8,6 +8,10 @@ library.  The library lands in ``_build/<hash of the sources and
 flags>/`` next to this module (listed in ``.gitignore``); a later process
 with the same sources loads it without building.
 
+The one-CTA-per-tile kernel loads its tiles by TMA: it reaches the
+driver's ``cuTensorMapEncodeTiled`` through the runtime's
+``cudaGetDriverEntryPoint``, so the library links no ``-lcuda``.
+
 Nothing here runs at import time: the first kernel launch builds and loads
 the library (:func:`library`).  Each C entry point returns the
 ``cudaGetLastError()`` code of its launch, and :func:`call_band_kernel`
@@ -48,11 +52,12 @@ ENTRY_POINTS = ("repro_fused_stencil_band", "repro_fused_stencil_band_db",
                 "repro_banded_fused_stencil")
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12
              + [ctypes.c_void_p] * 4)
-# "<entry>_shape": the same arguments plus an int[4] that receives the
+# "<entry>_shape": the same arguments plus an int[5] that receives the
 # launch the call would make (threads per CTA, shared bytes per CTA, CTAs
-# per SM from the occupancy API, CTAs in the grid); the kernels that size
-# their launch at run time have one
-SHAPE_ENTRY_POINTS = ("repro_fused_stencil_band_db_shape",
+# per SM from the occupancy API, CTAs in the grid, 1 if tiles load by
+# TMA); every kernel sizes its launch at run time and has one
+SHAPE_ENTRY_POINTS = ("repro_fused_stencil_band_shape",
+                      "repro_fused_stencil_band_db_shape",
                       "repro_banded_fused_stencil_shape")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"box": 0, "star": 0, "gradient": 1}
@@ -244,15 +249,15 @@ def launch_shape(entry: str, band: torch.Tensor, name: str, steps: int,
                  ) -> dict:
     """The launch :func:`call_band_kernel` would make for ``entry`` on
     this band, without launching: ``threads`` per CTA, ``smem_bytes``
-    per CTA, ``ctas_per_sm`` (the occupancy API's), ``grid`` (CTAs) and
-    the output ``tile``.  Only for the entries in ``SHAPE_ENTRY_POINTS``."""
+    per CTA, ``ctas_per_sm`` (the occupancy API's), ``grid`` (CTAs), the
+    output ``tile`` and ``tma`` (whether tiles load by TMA)."""
     _, (ty, tx), args = _band_args(band, name, steps, keep_top, keep_bottom,
                                    tile, buffers, smem_bytes)
-    shape = (ctypes.c_int * 4)()
+    shape = (ctypes.c_int * 5)()
     fn = getattr(library(), entry + "_shape")
     with torch.cuda.device(band.device):
         err = fn(band.data_ptr(), 0, *args, 0, ctypes.addressof(shape))
     if err != 0:
         raise RuntimeError(f"{entry}_shape failed: CUDA error {err}")
     return dict(threads=shape[0], smem_bytes=shape[1], ctas_per_sm=shape[2],
-                grid=shape[3], tile=[ty, tx])
+                grid=shape[3], tile=[ty, tx], tma=bool(shape[4]))

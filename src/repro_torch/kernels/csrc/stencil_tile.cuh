@@ -1,6 +1,6 @@
-// Shared device code of the two fused-stencil kernels: band geometry, the
-// apron'd tile load, the masked m-step update in shared memory, and the
-// output-tile store.
+// Shared device code of the band kernels: band geometry, the taps, the
+// tile origin, gradient2d's update and the host-side argument checks (the
+// column walk that steps a tile is in stencil_walk.cuh).
 //
 // Semantics (those of repro_torch.core.reference.multi_step_band): m fused
 // steps of a 2-D stencil on an (H, X) row band; the column frames [0, r)
@@ -66,21 +66,6 @@ __device__ __forceinline__ void tile_origin(const BandGeom& g, int i, int j, int
   sx = j * g.tx - mr;
 }
 
-// synchronous load of the apron'd tile, zero outside the band
-template <typename T>
-__device__ void load_tile(const T* __restrict__ in, T* tile, const BandGeom& g, int sy, int sx) {
-  for (int ly = threadIdx.y; ly < g.th; ly += blockDim.y) {
-    const int gy = sy + ly;
-    const bool row_in = gy >= 0 && gy < g.H;
-    for (int lx = threadIdx.x; lx < g.tw; lx += blockDim.x) {
-      const int gx = sx + lx;
-      tile[ly * g.tw + lx] = (row_in && gx >= 0 && gx < g.X)
-                                 ? in[(int64_t)gy * g.X + gx]
-                                 : from_f<T>(0.f);
-    }
-  }
-}
-
 // gradient2d on a cell c and its north/south/west/east neighbours:
 // c + dt * (gn+gs+gw+ge) * rsqrt(gn^2+gs^2+gw^2+ge^2 + eps).  Every
 // operation is the plain version's, in its order, through the _rn
@@ -102,62 +87,8 @@ __device__ __forceinline__ float gradient_update(float c, float n, float s, floa
   return __fadd_rn(c, step);
 }
 
-// One cell's update in fp32, rounded to T once by the caller, with the
-// linear taps summed in the plain version's order (same _rn rule).
-template <typename T, int KIND>
-__device__ __forceinline__ float update(const T* t, int idx, int tw, const Taps& taps) {
-  if constexpr (KIND == kKindLinear) {
-    float acc = __fmul_rn(taps.c[0], to_f(t[idx + taps.dy[0] * tw + taps.dx[0]]));
-    for (int k = 1; k < taps.n; ++k) {
-      acc = __fadd_rn(acc, __fmul_rn(taps.c[k], to_f(t[idx + taps.dy[k] * tw + taps.dx[k]])));
-    }
-    return acc;
-  } else {
-    return gradient_update(to_f(t[idx]), to_f(t[idx - tw]), to_f(t[idx + tw]),
-                           to_f(t[idx - 1]), to_f(t[idx + 1]));
-  }
-}
-
-// m masked steps ping-ponged between cur and nxt (the caller has synced
-// after filling cur); returns the buffer that holds the last step
-template <typename T, int KIND>
-__device__ T* run_steps(T* cur, T* nxt, const BandGeom& g, int sy, int sx, const Taps& taps) {
-  const int r = g.r;
-  for (int s = 0; s < g.m; ++s) {
-    for (int ly = threadIdx.y; ly < g.th; ly += blockDim.y) {
-      const int gy = sy + ly;
-      const bool row_upd = ly >= r && ly < g.th - r && gy >= r && gy < g.H - r;
-      for (int lx = threadIdx.x; lx < g.tw; lx += blockDim.x) {
-        const int gx = sx + lx;
-        const int idx = ly * g.tw + lx;
-        const bool upd = row_upd && lx >= r && lx < g.tw - r && gx >= r && gx < g.X - r;
-        nxt[idx] = upd ? from_f<T>(update<T, KIND>(cur, idx, g.tw, taps)) : cur[idx];
-      }
-    }
-    __syncthreads();
-    T* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  return cur;
-}
-
-// write output tile (i, j), masking the ragged bottom and right edges
-template <typename T>
-__device__ void store_tile(const T* tile, T* __restrict__ out, const BandGeom& g, int i, int j) {
-  const int mr = g.m * g.r;
-  for (int ly = threadIdx.y; ly < g.ty; ly += blockDim.y) {
-    const int o = i * g.ty + ly;
-    if (o >= g.h_out) break;
-    for (int lx = threadIdx.x; lx < g.tx; lx += blockDim.x) {
-      const int gx = j * g.tx + lx;
-      if (gx < g.X) out[(int64_t)o * g.X + gx] = tile[(ly + mr) * g.tw + lx + mr];
-    }
-  }
-}
-
-// how each step's work is cut among a CTA's warps (the persistent and the
-// banded kernel: two numbers per step), planned on the host once per launch
+// how each step's work is cut among a CTA's warps (two numbers per step),
+// planned on the host once per launch
 constexpr int kMaxSteps = 64;
 struct StepSplit {
   short a[kMaxSteps], b[kMaxSteps];

@@ -6,8 +6,8 @@ impl           what it is
 =============  ====================================================
 reference      plain PyTorch :func:`multi_step_band`; the numerics
                ground truth, and the only choice off CUDA
-cuda           shared-memory-resident k_on-step CUDA kernel, one CTA
-               per tile (:mod:`repro_torch.kernels.stencil_multistep`)
+cuda           k_on-step CUDA kernel, one CTA per tile loaded by TMA
+               (:mod:`repro_torch.kernels.stencil_multistep`)
 cuda_db        persistent CUDA kernel with a ``cp.async`` ring
                (:mod:`repro_torch.kernels.stencil_multistep_db`)
 mxu            linear stencils as banded products on the tensor cores
@@ -41,7 +41,7 @@ import torch
 from repro_torch.core.analytic import H100_SXM
 from repro_torch.core.stencil import Stencil, get_stencil
 from repro_torch.kernels import (
-    CUDA_TILE, DB_CUDA_TILE, MXU_CUDA_TILE, ceil_div)
+    BAND_CUDA_TILE, CUDA_TILE, DB_CUDA_TILE, MXU_CUDA_TILE, ceil_div)
 
 __all__ = [
     "DispatchPolicy", "KernelImpl", "KERNEL_IMPLS",
@@ -94,7 +94,7 @@ def _make_reference(policy: DispatchPolicy) -> FusedStep:
 def _make_cuda(policy: DispatchPolicy) -> FusedStep:
     from repro_torch.kernels.stencil_multistep import fused_stencil_band
 
-    tile = policy.tile or CUDA_TILE
+    tile = policy.tile or BAND_CUDA_TILE
 
     def step(band, name, steps, keep_top=False, keep_bottom=False):
         return fused_stencil_band(band, name, steps, keep_top=keep_top,
@@ -149,9 +149,10 @@ register_kernel_impl(KernelImpl(
 ))
 register_kernel_impl(KernelImpl(
     name="cuda",
-    description="shared-memory-resident k_on-step CUDA kernel (on-chip reuse)",
+    description="k_on-step CUDA kernel, one CTA per tile loaded by TMA",
     make=_make_cuda,
     supports=_is_2d,
+    default_tile=BAND_CUDA_TILE,
     smem_buffers=2,
 ))
 register_kernel_impl(KernelImpl(

@@ -10,7 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import CUDA_TILE
+from repro_torch.kernels import BAND_CUDA_TILE
 from repro_torch.kernels.stencil_multistep import fused_stencil_band
 
 __all__ = ["fused_stencil", "kernel_fused_step"]
@@ -26,7 +26,7 @@ def fused_stencil(
 ) -> torch.Tensor:
     return fused_stencil_band(
         band, name, steps, keep_top=keep_top, keep_bottom=keep_bottom,
-        tile=tile or CUDA_TILE,
+        tile=tile or BAND_CUDA_TILE,
     )
 
 

@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.core.reference import multi_step_band
 from repro_torch.core.stencil import get_stencil
-from repro_torch.kernels import DB_CUDA_TILE, ceil_div
+from repro_torch.kernels import DB_CUDA_TILE, walk_row_stride
 
 __all__ = ["fused_stencil_band_db", "fused_stencil_band_db_plain",
            "db_smem_bytes", "db_launch_shape"]
@@ -54,10 +54,8 @@ def db_smem_bytes(ty: int, tx: int, steps: int, radius: int,
     at the 16-byte-aligned column at or left of the tile, so each row has
     room for ``16/itemsize - 1`` more elements, rounded to whole 16-byte
     chunks."""
-    vec = 16 // itemsize
     th, tw = ty + 2 * steps * radius, tx + 2 * steps * radius
-    stride = ceil_div(tw + vec - 1, vec) * vec
-    return 3 * th * stride * itemsize
+    return 3 * th * walk_row_stride(tw, itemsize) * itemsize
 
 
 def fused_stencil_band_db_plain(band: torch.Tensor, name: str, steps: int,

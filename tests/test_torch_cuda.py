@@ -25,7 +25,8 @@ from repro_torch.kernels import CUDA_TILE
 from repro_torch.kernels._build import call_band_kernel
 from repro_torch.kernels.dispatch import DispatchPolicy
 from repro_torch.kernels.stencil_multistep import (
-    fused_stencil_band, fused_stencil_band_plain)
+    band_launch_shape, band_smem_bytes, band_uses_tma, fused_stencil_band,
+    fused_stencil_band_plain)
 from repro_torch.kernels.stencil_banded_mxu import (
     banded_fused_stencil, banded_fused_stencil_plain, banded_launch_shape,
     banded_smem_bytes)
@@ -103,13 +104,16 @@ def test_banded_kernel_matches_plain(dev, name):
                                   "box2d4r", "star2d1r", "star2d4r",
                                   "gradient2d"])
 def test_redesigned_kernels_over_radii_depths_and_grids(dev, name):
-    """B2 (``cuda_db``) bitwise equal to its plain version in fp32 and B3
-    (``mxu``, linear stencils) within 2e-5 and the same bits in two
-    launches, at r = 1..4 and m in {1, 2, 4, 8}, on ragged bands (one or
-    two tiles: fewer than the persistent grid's CTAs) and on a band whose
-    tile count is not a multiple of the grid, with the keep flags; bf16
-    up to m = 4 (the plain version rounds every operation to bf16, the
-    kernels once per step, and gradient2d spreads that difference past
+    """B1 (``cuda``) and B2 (``cuda_db``) bitwise equal to their plain
+    version in fp32 and B3 (``mxu``, linear stencils) within 2e-5, each
+    with the same bits in two launches, at r = 1..4 and m in {1, 2, 4, 8},
+    on ragged bands (one or two tiles: fewer than the persistent grid's
+    CTAs), on a band whose tile count is not a multiple of the grid, and on
+    one whose row pitch is a multiple of 16 bytes, with the keep flags.  B1
+    launches one CTA per tile and loads by TMA exactly where
+    ``band_uses_tma`` says (the last band), by ``cp.async`` on the others.
+    bf16 up to m = 4 (the plain version rounds every operation to bf16,
+    the kernels once per step, and gradient2d spreads that difference past
     the 3e-2 bound over 8 steps)."""
     st = get_stencil(name)
     for steps in (1, 2, 4, 8):
@@ -118,6 +122,8 @@ def test_redesigned_kernels_over_radii_depths_and_grids(dev, name):
                                ((41, 97), True, False),
                                ((41, 97), True, True),
                                ((2 * mr + 32 * 25, 128 * 10 + 5), False,
+                                False),
+                               ((2 * mr + 64 * 6 + 7, 120 * 5 + 8), True,
                                 False)]:
             if H - 2 * mr + (kt + kb) * mr <= 0 or X <= 2 * mr:
                 continue
@@ -129,6 +135,22 @@ def test_redesigned_kernels_over_radii_depths_and_grids(dev, name):
             assert torch.equal(got, ref), (name, H, X, steps, kt, kb)
             shape = db_launch_shape(x, name, steps, kt, kb)
             assert shape["grid"] >= 1 and shape["ctas_per_sm"] >= 1
+            got = fused_stencil_band(x, name, steps, kt, kb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), ("cuda", name, H, X, steps, kt, kb)
+            assert torch.equal(fused_stencil_band(x, name, steps, kt, kb),
+                               got)
+            shape = band_launch_shape(x, name, steps, kt, kb)
+            ty, tx = shape["tile"]
+            h_out = ref.shape[0]
+            assert shape["grid"] == -(-h_out // ty) * -(-X // tx)
+            assert shape["smem_bytes"] == band_smem_bytes(
+                ty, tx, steps, st.radius, 4)
+            tma = band_uses_tma(X, 4, x.data_ptr(),
+                                (ty + 2 * mr, tx + 2 * mr))
+            assert shape["load"] == ("tma" if tma else "cp.async")
+            assert tma == (X % 4 == 0 and ty + 2 * mr <= 256
+                           and tx + 2 * mr + 3 <= 256), (X, ty, tx, mr)
             if st.is_linear:
                 ref = banded_fused_stencil_plain(x, name, steps, kt, kb)
                 got = banded_fused_stencil(x, name, steps, kt, kb)
@@ -140,7 +162,9 @@ def test_redesigned_kernels_over_radii_depths_and_grids(dev, name):
             if steps > 4:
                 continue
             xb = x.to(torch.bfloat16)
-            for fn, plain in ((fused_stencil_band_db,
+            for fn, plain in ((fused_stencil_band,
+                               fused_stencil_band_plain),
+                              (fused_stencil_band_db,
                                fused_stencil_band_plain),
                               (banded_fused_stencil,
                                banded_fused_stencil_plain)):
