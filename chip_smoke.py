@@ -27,7 +27,8 @@ Phases, none of them caught — any failure exits non-zero:
    paper's out-of-core size), d=4, k_off=160, k_on=4, n=320, default
    dispatch (auto -> cuda_db), through the double-buffered and the eager
    executor: launch count == kernel calls, the two outputs bitwise equal,
-   both within 1e-5 relative of the plain oracle run on the card.
+   both within 1e-5 relative of the plain oracle run on the card; the
+   sha256 of the double-buffered output is kept for the later phases.
 4. the fused kernel on the path: SO2DR box2d1r, same size, n=160, with
    DispatchPolicy(impl="cuda"), checked the same way.
 5. the banded kernel on the path: SO2DR box2d4r, same size, the paper's
@@ -38,6 +39,26 @@ Phases, none of them caught — any failure exits non-zero:
    ``chiprun_out/profile.json``), then rank box2d4r configurations with it
    and measure the top four; each measured candidate must have launched
    its own impl's kernel.
+7. recovery: the box2d4r run of phase 5 again, through
+   ``run_with_recovery`` with a checkpoint every round (to
+   ``chiprun_out/ckpt``, deleted at the end) and a fault plan: a transient
+   H2D fault on round 0, chunk 1, twice (retried), and a terminal kernel
+   fault on round 1, chunk 2.  The resumed output's sha256 equals phase
+   5's; 1 resume, 3 faults, 2 retries; ``mxu`` launched the plan's kernel
+   calls plus round 1's calls before the fault.  Records the wall time,
+   the seconds per checkpoint save and restore, and phase 5's wall.
+8. service: a ``StencilService`` priced by phase 6's profile, default
+   dispatch (auto -> ``cuda_db``), flushes three jobs at once, each
+   copying on its own stream from its page-locked host array: gradient2d
+   (bitwise equal to phase 3's output), box2d1r (bitwise equal to phase
+   4's, computed by ``cuda``) and a two-round box2d1r job (n=320) with a
+   terminal kernel fault at round 1 (fails with last committed round 0,
+   its host memory unregistered: it can be page-locked again); the slot
+   pool balances and ``cuda_db`` launched the jobs' kernel calls.  Then a warm gradient2d job
+   on a domain 1/16 shorter compiles no kernel and is within 1e-5 of the
+   oracle.  Records the flush wall beside the main paths' solo walls,
+   the modeled makespans interleaved and back to back, each job's
+   latency and the service's counters.
 
 The line before the last is the card's name and power limit; before it,
 a ``{"kernels": [...]}`` JSON line, and before that the launch shape of
@@ -50,9 +71,12 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import functools
+import hashlib
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -63,12 +87,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core.calibrate import calibrate  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
     DoubleBufferedExecutor, EagerExecutor)
-from repro_torch.core.lower import host_register, host_unregister  # noqa: E402
+from repro_torch.core.faults import (  # noqa: E402
+    KERNEL_FAULT, TRANSIENT_TRANSFER, FaultPlan, FaultTrigger, RetryPolicy)
+from repro_torch.core.lower import (  # noqa: E402
+    CompiledPlan, host_register, host_unregister)
 from repro_torch.core.oocore import compile_plan  # noqa: E402
 from repro_torch.core.plan import FusedKernel, fused_box_geometry  # noqa: E402
+from repro_torch.core.recovery import (  # noqa: E402
+    PlanCheckpointer, PlanExecutionError, run_with_recovery)
 from repro_torch.core.reference import run_reference  # noqa: E402
 from repro_torch.core.stencil import get_stencil  # noqa: E402
 from repro_torch.core.tune import TuneSpec, _default_measure, tune  # noqa: E402
@@ -83,6 +113,7 @@ from repro_torch.kernels.stencil_multistep import (  # noqa: E402
     fused_stencil_band_plain)
 from repro_torch.kernels.stencil_multistep_db import (  # noqa: E402
     db_launch_shape, fused_stencil_band_db, fused_stencil_band_db_plain)
+from repro_torch.serve import StencilJob, StencilService  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -92,6 +123,7 @@ FP32_TOL, BF16_TOL = 1e-5, 3e-2
 MXU_FP32_ABS_TOL = 2e-5           # tests/test_kernels.py:80
 IMPLS = ("reference", "cuda", "cuda_db", "mxu")
 ORACLE_BLOCK_ROWS = 2048
+MAIN_SEED = 20231108              # every main path's input domain
 KERNELS = {
     "cuda": dict(
         fn=fused_stencil_band, plain=fused_stencil_band_plain,
@@ -164,6 +196,20 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return {impl: k["fn"].launches for impl, k in KERNELS.items()}
+
+
+def sha256(arr: np.ndarray) -> str:
+    """Digest of an output's bytes: later phases hold their outputs
+    bitwise to a main path's without keeping its array alive."""
+    return hashlib.sha256(np.ascontiguousarray(arr).data).hexdigest()
+
+
+@functools.lru_cache(maxsize=1)
+def main_domain(size: int) -> np.ndarray:
+    """Every main path's input, drawn once per run (5.9 GB at full size)
+    and shared by the phases; no executor writes its input."""
+    return np.random.default_rng(MAIN_SEED).standard_normal(
+        (size, size), dtype=np.float32)
 
 
 def card_line() -> str:
@@ -509,9 +555,8 @@ def oracle_check(x: np.ndarray, name: str, n: int, outs: dict) -> dict:
 def phase_main_path(key: str, name: str, size: int, n: int, impl: str,
                     policy: DispatchPolicy, k_off: int = 160) -> None:
     with phase(key):
-        rng = np.random.default_rng(20231108)
         t0 = time.perf_counter()
-        x = rng.standard_normal((size, size), dtype=np.float32)
+        x = main_domain(size)
         plan = compile_plan("so2dr", get_stencil(name), size, size, n, 4,
                             k_off, 4)
         rec = {"stencil": name, "shape": [size, size], "n": n, "d": 4,
@@ -546,6 +591,7 @@ def phase_main_path(key: str, name: str, size: int, n: int, impl: str,
         check(np.array_equal(outs["double_buffered"], outs["eager"]),
               "eager and double-buffered outputs differ")
         rec["eager_equals_double_buffered"] = True
+        rec["sha256"] = sha256(outs["double_buffered"])
         rec["oracle"] = oracle_check(x, name, n, outs)
         log(f"{name}: eager == double_buffered bitwise; vs oracle "
             f"{json.dumps(rec['oracle'])}")
@@ -610,6 +656,222 @@ def phase_calibrate_tune(size: int, out_dir: str) -> None:
         RESULT["calibrate_tune"] = rec
 
 
+class TimedCheckpointManager(CheckpointManager):
+    """A CheckpointManager that keeps the seconds of each save and
+    restore (fsync and atomic rename included)."""
+
+    def __init__(self, directory: str, keep: int):
+        super().__init__(directory, keep=keep)
+        self.save_s, self.restore_s = [], []
+
+    def save(self, step, tree, extra_meta=None):
+        t = time.perf_counter()
+        out = super().save(step, tree, extra_meta)
+        self.save_s.append(time.perf_counter() - t)
+        return out
+
+    def restore(self, like, step=None):
+        t = time.perf_counter()
+        out = super().restore(like, step)
+        self.restore_s.append(time.perf_counter() - t)
+        return out
+
+
+def phase_recovery(size: int, out_dir: str) -> None:
+    """The box2d4r main path through ``run_with_recovery``: a retried
+    transient fault, then a terminal one resumed from the checkpoint of
+    round 0; bitwise equal to the uninterrupted run."""
+    name = "box2d4r"
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    with phase("recovery"):
+        x = main_domain(size)
+        plan = compile_plan("so2dr", get_stencil(name), size, size, 80, 4,
+                            40, 4)
+        faults = FaultPlan([
+            FaultTrigger(round=0, chunk=1, op_class="H2D",
+                         kind=TRANSIENT_TRANSFER, count=2),
+            FaultTrigger(round=1, chunk=2, op_class="FusedKernel",
+                         kind=KERNEL_FAULT)])
+        # kernels of round 1 that run before its fault, and run again
+        before_fault = sum(1 for op in plan.ops if isinstance(op, FusedKernel)
+                           and op.round == 1 and op.chunk < 2)
+        mgr = TimedCheckpointManager(ckpt_dir, keep=1)
+        try:
+            exe = DoubleBufferedExecutor(policy=DispatchPolicy(impl="mxu"))
+            reset_counts()
+            t = time.perf_counter()
+            out, _ = run_with_recovery(
+                plan, x, executor=exe, faults=faults,
+                retry=RetryPolicy(max_retries=3, backoff_s=0.001),
+                checkpoint=PlanCheckpointer(mgr, plan, every=1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launched = counts()
+            ckpt_bytes = sum(
+                os.path.getsize(os.path.join(d, f))
+                for d, _, files in os.walk(ckpt_dir) for f in files)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        es = exe.exec_stats
+        want = plan.stats().kernel_calls + before_fault
+        check(launched["mxu"] == want and sum(launched.values()) == want,
+              launched, want)
+        check((es.resumes, es.faults_injected, es.retries) == (1, 3, 2),
+              es.resumes, es.faults_injected, es.retries)
+        check(out.shape == x.shape, out.shape)
+        digest = sha256(out)
+        check(digest == RESULT["main_path_box2d4r"]["sha256"],
+              "resumed box2d4r differs from the uninterrupted run")
+        rec = dict(stencil=name, wall_s=wall,
+                   uninterrupted_wall_s=RESULT["main_path_box2d4r"][
+                       "double_buffered"]["wall_s"],
+                   save_s=mgr.save_s, restore_s=mgr.restore_s,
+                   checkpoint_bytes=ckpt_bytes, launches=launched["mxu"],
+                   kernel_calls_rerun=before_fault, resumes=es.resumes,
+                   faults_injected=es.faults_injected, retries=es.retries,
+                   sha256=digest, bitwise_equal_uninterrupted=True)
+        RESULT["recovery"] = rec
+        log(f"recovery: {wall:.2f} s (uninterrupted "
+            f"{rec['uninterrupted_wall_s']:.2f} s), saves "
+            f"{[round(v, 2) for v in mgr.save_s]} s, restores "
+            f"{[round(v, 2) for v in mgr.restore_s]} s, "
+            f"{launched['mxu']} mxu launches ({before_fault} rerun), "
+            "bitwise equal to the uninterrupted run")
+
+
+class _RuntimeHosts:
+    """Records the host array of every runtime built inside the block, by
+    compiled plan: the service copies each job's input, page-locks the
+    copy and drops it when the job fails, so this is the only handle on
+    the memory whose registration the phase checks."""
+
+    def __enter__(self):
+        self.hosts, self._orig = {}, CompiledPlan.runtime
+        orig, hosts = self._orig, self.hosts
+
+        def runtime(compiled, x, slot_pool=None, copy_stream=None):
+            rt = orig(compiled, x, slot_pool, copy_stream)
+            hosts[id(compiled)] = rt.host
+            return rt
+
+        CompiledPlan.runtime = runtime
+        return self.hosts
+
+    def __exit__(self, *exc):
+        CompiledPlan.runtime = self._orig
+
+
+def phase_service(size: int, out_dir: str) -> None:
+    """Three jobs through one flush of the stencil service (one poisoned),
+    then a warm in-bucket job."""
+    with phase("service"):
+        x = main_domain(size)
+        svc = StencilService(profile=os.path.join(out_dir, "profile.json"),
+                             policy=DispatchPolicy())
+        knobs = dict(d=4, k_on=4, s_tb=160)
+        jobs = {
+            "gradient2d": StencilJob((size, size), "gradient2d", 320, **knobs),
+            "box2d1r": StencilJob((size, size), "box2d1r", 160, **knobs),
+            # two rounds (n=160 with s_tb=160 is one): the fault at round
+            # 1 fires after round 0 committed
+            "box2d1r_poisoned": StencilJob(
+                (size, size), "box2d1r", 320, **knobs,
+                faults=FaultPlan([FaultTrigger(round=1, chunk=None,
+                                               op_class="FusedKernel",
+                                               kind=KERNEL_FAULT)])),
+        }
+        label = {svc.submit(job, x): key for key, job in jobs.items()}
+        reset_counts()
+        with _RuntimeHosts() as hosts:
+            t = time.perf_counter()
+            results = {label[r.job_id]: r for r in svc.flush()}
+            torch.cuda.synchronize()
+            flush_wall = time.perf_counter() - t
+        launched = counts()
+        host_of = {label[j.job_id]: hosts[id(j.compiled)]
+                   for j in svc.last_admission}
+        rec = {"order": [label[j.job_id] for j in svc.last_admission],
+               "flush_wall_s": flush_wall, "jobs": {}}
+        for key, r in results.items():
+            rec["jobs"][key] = dict(
+                status=r.status, latency_s=r.latency_s,
+                predicted_s=r.predicted_s,
+                kernel_impl=r.exec_stats.kernel_impl,
+                kernel_calls=r.exec_stats.kernel_calls,
+                kernel_compiles=r.exec_stats.kernel_compiles,
+                op_wall_s=r.exec_stats.op_wall_s)
+        for key, main in (("gradient2d", "main_path_gradient2d"),
+                          ("box2d1r", "main_path_box2d1r")):
+            r = results[key]
+            check(r.status == "ok" and r.out is not None, key, r.status)
+            check(r.exec_stats.kernel_impl == "cuda_db", key,
+                  r.exec_stats.kernel_impl)
+            rec["jobs"][key]["sha256"] = digest = sha256(r.out)
+            check(digest == RESULT[main]["sha256"],
+                  f"service job {key} differs from {main}")
+        bad = results["box2d1r_poisoned"]
+        check(bad.status == "failed" and bad.out is None
+              and isinstance(bad.fault, PlanExecutionError)
+              and bad.fault.last_committed_round == 0, bad.status, bad.fault)
+        svc.slot_pool.assert_balanced()
+        # no job left its memory page-locked: each registers again
+        for key, host in host_of.items():
+            host_register(host)
+            host_unregister(host)
+        want = sum(r.exec_stats.kernel_calls for r in results.values())
+        check(launched["cuda_db"] == want and sum(launched.values()) == want,
+              launched, want)
+        solo = {key: RESULT[main]["double_buffered"]["wall_s"]
+                for key, main in (("gradient2d", "main_path_gradient2d"),
+                                  ("box2d1r", "main_path_box2d1r"))}
+        rec.update(
+            solo_wall_s=solo, solo_wall_sum_s=sum(solo.values()),
+            solo_note="box2d1r's main path ran cuda (B1); the poisoned job "
+                      "has no solo run",
+            modeled_interleaved_s=svc.modeled_makespan(interleaved=True),
+            modeled_back_to_back_s=svc.modeled_makespan(interleaved=False),
+            cuda_db_launches=launched["cuda_db"], pool_balanced=True,
+            failed_job=dict(last_committed_round=0,
+                            fault=str(bad.fault.fault),
+                            host_registers_again=True))
+        del results, host_of, hosts, bad
+        log(f"service flush of 3 jobs: {flush_wall:.2f} s (solo main-path "
+            f"walls {json.dumps({k: round(v, 2) for k, v in solo.items()})}); "
+            f"modeled {rec['modeled_interleaved_s']:.4g} s interleaved, "
+            f"{rec['modeled_back_to_back_s']:.4g} s back to back; latencies "
+            + json.dumps({k: round(v["latency_s"], 2)
+                          for k, v in rec["jobs"].items()}))
+        # a warm job whose bands fit the buckets the first flush registered
+        rows = size - size // 16
+        xw = x[:rows]
+        wid = svc.submit(StencilJob((rows, size), "gradient2d", 320, **knobs),
+                         xw)
+        reset_counts()
+        t = time.perf_counter()
+        [warm] = svc.flush()
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t
+        launched = counts()
+        check(warm.job_id == wid and warm.status == "ok", warm.status)
+        check(warm.exec_stats.kernel_compiles == 0,
+              warm.exec_stats.kernel_compiles)
+        check(launched["cuda_db"] == warm.exec_stats.kernel_calls > 0,
+              launched, warm.exec_stats.kernel_calls)
+        rec["warm"] = dict(shape=[rows, size], wall_s=warm_wall,
+                           latency_s=warm.latency_s,
+                           kernel_calls=warm.exec_stats.kernel_calls,
+                           kernel_compiles=warm.exec_stats.kernel_compiles,
+                           kernel_cache_hits=warm.exec_stats.kernel_cache_hits,
+                           oracle=oracle_check(xw, "gradient2d", 320,
+                                               {"service_warm": warm.out}))
+        svc.slot_pool.assert_balanced()
+        rec["service_stats"] = svc.service_stats()
+        RESULT["service"] = rec
+        log(f"warm job {rows}x{size}: {warm_wall:.2f} s, 0 kernel compiles, "
+            f"vs oracle {json.dumps(rec['warm']['oracle'])}; service "
+            + json.dumps(rec["service_stats"]))
+
+
 def kernels_line() -> dict:
     out = []
     for impl, key in (("cuda", "main_path_box2d1r"),
@@ -656,7 +918,9 @@ def main(argv=None) -> int:
                     DispatchPolicy(impl="cuda"))
     phase_main_path("main_path_box2d4r", "box2d4r", args.size, 80, "mxu",
                     DispatchPolicy(impl="mxu"), k_off=40)
+    phase_recovery(args.size, out_dir)
     phase_calibrate_tune(args.size, out_dir)
+    phase_service(args.size, out_dir)
     RESULT["total_s"] = time.perf_counter() - t_all
     line = kernels_line()
     RESULT.update(line)

@@ -1,7 +1,9 @@
 """repro_torch: SO2DR on PyTorch and CUDA — the port of ``repro``.
 
 The planners, plan IR, lowering, executors, codecs, cost model,
-calibration and tuner of ``repro.core`` on PyTorch tensors, with the fused-stencil kernels written by hand for
+calibration and tuner, fault injection and checkpoint/resume of
+``repro.core``, and the stencil service of ``repro.serve``, on PyTorch
+tensors, with the fused-stencil kernels written by hand for
 Hopper (``repro_torch.kernels``).  It imports neither JAX nor ``repro``.
 Importing it builds and loads no kernel: the CUDA library is built the
 first time a kernel launches.  Entry points run on the GPU unless the
@@ -29,7 +31,17 @@ from .core import (  # noqa: F401
     DeviceProfile,
     calibrate,
     resolve_hardware,
+    FaultPlan,
+    FaultTrigger,
+    RetryPolicy,
+    InjectedFault,
+    PlanExecutionError,
+    PlanCheckpointer,
+    resume_plan,
+    run_with_recovery,
 )
+from .checkpoint import CheckpointManager  # noqa: F401
+from .serve import JobResult, StencilJob, StencilService  # noqa: F401
 
 __all__ = [
     "Box",
@@ -53,4 +65,16 @@ __all__ = [
     "DeviceProfile",
     "calibrate",
     "resolve_hardware",
+    "FaultPlan",
+    "FaultTrigger",
+    "RetryPolicy",
+    "InjectedFault",
+    "PlanExecutionError",
+    "PlanCheckpointer",
+    "resume_plan",
+    "run_with_recovery",
+    "CheckpointManager",
+    "StencilService",
+    "StencilJob",
+    "JobResult",
 ]

@@ -223,21 +223,27 @@ class _LoweredExecutorBase:
             self._lowered_memo[key] = (plan, fused_step, policy, compiled)
         return compiled
 
+    supports_injection = True
+
     def execute(self, plan: ExecutionPlan, x: np.ndarray,
                 injector=None, retry=None, on_commit=None,
                 ) -> Tuple[np.ndarray, TransferStats]:
         """Run a plan on the executor's device.  ``injector``/``retry``/
-        ``on_commit`` are not ported yet and raise
-        :class:`NotImplementedError`."""
-        if injector is not None or retry is not None or on_commit is not None:
-            raise NotImplementedError(
-                "fault injection, retry and commit hooks are not ported yet")
+        ``on_commit`` thread the fault-injection and checkpoint hooks
+        through to :meth:`repro_torch.core.lower.CompiledPlan.execute`;
+        they require the lowered path (the legacy op-at-a-time
+        interpreter has no op sites to consult)."""
         if self.lowered:
             host, stats, exec_stats = self._compiled(plan).execute(
-                x, pipeline=self._pipeline, slot_pool=self.slot_pool)
+                x, pipeline=self._pipeline, slot_pool=self.slot_pool,
+                injector=injector, retry=retry, on_commit=on_commit)
             exec_stats.executor = self.name
             self.exec_stats = exec_stats
             return host, stats
+        if injector is not None or retry is not None or on_commit is not None:
+            raise ValueError(
+                "fault injection / commit hooks require the lowered "
+                "executor path (lowered=True)")
         host, stats = self._execute_legacy(plan, x)
         self.exec_stats = None
         return host, stats

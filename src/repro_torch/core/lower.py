@@ -29,7 +29,15 @@ tensors.  On CUDA the pipelined run issues its H2D copies on a separate
 copy stream from the run's host array, page-locked for the run with
 ``cudaHostRegister`` so the copies are true DMA; the compute stream waits
 on each copy's event just before the register's first use.  Staged D2H
-boxes drain into the host array at HostCommit.
+boxes drain into the host array at HostCommit, synchronously, so the
+host array is the complete state of the run when a round's commit hook
+(``on_commit``) fires.
+
+Faults: an injector (:mod:`repro_torch.core.faults`) is consulted before
+every bound op; a terminal fault surfaces as
+:class:`~repro_torch.core.recovery.PlanExecutionError` carrying the last
+committed round.  A faulted run drops its staged rows, and on CUDA its
+copy stream drains before its host array is unregistered.
 
 Accounting is untouched: :meth:`CompiledPlan.execute` returns the
 plan-derived :class:`~repro_torch.core.plan.TransferStats`.
@@ -47,6 +55,7 @@ import torch
 
 from .compress import get_codec
 from .device import resolve_device
+from .faults import InjectedFault, consult
 from .plan import (
     BufferRead, BufferWrite, Compress, D2H, Decompress, ExecutionPlan,
     FusedKernel, H2D, HostCommit, TransferStats,
@@ -77,8 +86,10 @@ class ExecStats:
     ops return once their work is queued, so they measure dispatch, not
     device time.  The cache/op counters are the deterministic part.
     ``modeled_s``/``model_error`` are set by the tuner's measured
-    refinement (:func:`repro_torch.core.tune.tune`).  (The JAX package's
-    fault counters come with the slice that ports faults.)"""
+    refinement (:func:`repro_torch.core.tune.tune`);
+    ``faults_injected``/``retries`` count this run's injected faults and
+    the transient ones absorbed by backoff, ``resumes`` the checkpoint
+    resumes of :func:`repro_torch.core.recovery.run_with_recovery`."""
 
     executor: str = ""
     kernel_impl: str = ""
@@ -91,6 +102,9 @@ class ExecStats:
     stage_count: int = 0
     lower_s: float = 0.0
     wall_s: float = 0.0
+    faults_injected: int = 0       # injected faults hit this run
+    retries: int = 0               # transient faults absorbed by backoff
+    resumes: int = 0               # checkpoint resumes (recovery loop)
     modeled_s: Optional[float] = None     # Sec. III prediction for this run
     model_error: Optional[float] = None   # (modeled_s - wall_s) / wall_s
 
@@ -115,6 +129,9 @@ class ExecStats:
             self.stage_count += other.stage_count
             self.lower_s += other.lower_s
             self.wall_s += other.wall_s
+            self.faults_injected += other.faults_injected
+            self.retries += other.retries
+            self.resumes += other.resumes
             self.executor = self.executor or other.executor
             self.kernel_impl = self.kernel_impl or other.kernel_impl
             if other.modeled_s is not None:
@@ -148,6 +165,12 @@ class KernelCache:
             else:
                 self.hits += 1
             return fn
+
+    def snapshot(self) -> Tuple[int, int]:
+        """Atomic ``(hits, misses)`` read — per-job compile attribution
+        in a shared-cache service needs both counters from one instant."""
+        with self._lock:
+            return self.hits, self.misses
 
     def __len__(self) -> int:
         with self._lock:
@@ -247,10 +270,13 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 class _Runtime:
     """Slot-indexed register/buffer/staging state the bound closures run
     against.  ``copy_stream`` (pipelined CUDA runs) carries the H2D copies;
-    ``ready`` holds each such register's copy event until its first use."""
+    ``ready`` holds each such register's copy event until its first use.
+    ``committed_round`` is the newest round whose barrier fully drained
+    (-1 = none) and ``on_commit`` the per-round checkpoint hook."""
 
     __slots__ = ("host", "regs", "bufs", "staged", "wire", "device",
-                 "copy_stream", "ready")
+                 "copy_stream", "ready", "on_commit", "committed_round",
+                 "pinned")
 
     def __init__(self, host: np.ndarray, n_regs: int, n_bufs: int,
                  device: torch.device, regs: Optional[List] = None,
@@ -266,6 +292,9 @@ class _Runtime:
         self.device = device
         self.copy_stream = copy_stream
         self.ready: Dict[int, object] = {}
+        self.on_commit: Optional[Callable[[int, np.ndarray], None]] = None
+        self.committed_round = -1
+        self.pinned = False
 
     def load(self, slot: int, arr: np.ndarray) -> None:
         """H2D of a host box into register ``slot``."""
@@ -305,6 +334,33 @@ class _Runtime:
             self.host[sl] = codec.decode(codec.encode(arr), arr.shape,
                                          arr.dtype)
         self.staged.clear()
+
+    def commit_round(self, rnd: int) -> None:
+        """A round's HostCommit barrier: drain staged writes (the copies
+        into the host array are synchronous), record the round as the
+        recovery point, fire the checkpoint hook — the host array is the
+        complete state of the run here."""
+        self.commit()
+        self.committed_round = rnd
+        if self.on_commit is not None:
+            self.on_commit(rnd, self.host)
+
+    def pin(self) -> None:
+        """Page-lock the host array for the copy stream's H2D (pipelined
+        CUDA runs only; a no-op otherwise)."""
+        if self.copy_stream is not None and self.host.nbytes > 0:
+            host_register(self.host)
+            self.pinned = True
+
+    def unpin(self) -> None:
+        """Undo :meth:`pin` once no H2D still reads the host array: the
+        copy stream drains first, on every exit path of a run (retired,
+        faulted or failed), so a later ``cudaHostRegister`` of the same
+        memory succeeds."""
+        if self.pinned:
+            self.copy_stream.synchronize()
+            host_unregister(self.host)
+            self.pinned = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -402,34 +458,40 @@ class CompiledPlan:
         identical either way: the same kernels run on the same bands in
         the same order.
 
-        ``injector``/``retry``/``on_commit`` (fault injection and the
-        checkpoint hook) are not ported yet and raise
-        :class:`NotImplementedError`."""
-        if injector is not None or retry is not None or on_commit is not None:
-            raise NotImplementedError(
-                "fault injection, retry and commit hooks are not ported yet")
+        ``injector`` (a :class:`repro_torch.core.faults.FaultInjector`) is
+        consulted before every bound op; transient faults are retried in
+        place under ``retry`` (a :class:`repro_torch.core.faults.RetryPolicy`),
+        terminal faults surface as a typed
+        :class:`repro_torch.core.recovery.PlanExecutionError` carrying the
+        last committed round; the faulted run's staged rows are dropped.
+        ``on_commit(round, host)`` fires after every round's barrier
+        drains — the checkpoint hook.  On every exit path the copy stream
+        drains before the host array is unregistered, and leased slot
+        storage returns to the pool."""
         cuda_pipe = pipeline and self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.device) if cuda_pipe else None
         rt = self.runtime(x, slot_pool, copy_stream)
+        rt.on_commit = on_commit
         wall = [0.0] * len(OP_TAGS)
         counts = [0] * len(OP_TAGS)
-        hits0, miss0 = self.cache.hits, self.cache.misses
+        hits0, miss0 = self.cache.snapshot()
+        f0 = injector.faults_injected if injector is not None else 0
+        r0 = injector.retries if injector is not None else 0
         perf = time.perf_counter
         t_run = perf()
 
         def run(ops: Tuple[BoundOp, ...]) -> None:
-            for tag, fn, _, _ in ops:
+            for tag, fn, rnd, chunk in ops:
+                if injector is not None:
+                    consult(injector, retry, rnd, chunk, OP_TAGS[tag])
                 t0 = perf()
                 fn(rt)
                 wall[tag] += perf() - t0
                 counts[tag] += 1
 
         stages = self.stages
-        pinned = False
         try:
-            if cuda_pipe and rt.host.nbytes > 0:
-                host_register(rt.host)
-                pinned = True
+            rt.pin()
             if not pipeline:
                 for stage in stages:
                     run(stage.ops)
@@ -448,23 +510,36 @@ class CompiledPlan:
                         prefetched[j + 1] = True
                     run(stage.rest if prefetched[j] else stage.ops)
             rt.commit()   # no-op unless a planner forgot the final barrier
+        except InjectedFault as f:
+            from .recovery import PlanExecutionError, plan_fingerprint
+            # a faulted round commits nothing; the error's traceback keeps
+            # ``rt`` alive, so free its staged device rows now
+            rt.staged.clear()
+            raise PlanExecutionError(
+                f"plan execution failed at round={f.round} "
+                f"chunk={f.chunk} op={f.op_class}: {f.kind} "
+                f"(last committed round {rt.committed_round})",
+                fault=f, last_committed_round=rt.committed_round,
+                fingerprint=plan_fingerprint(self.plan)) from f
         finally:
-            if pinned:
-                copy_stream.synchronize()
-                host_unregister(rt.host)
+            rt.unpin()
             self.release_runtime(rt, slot_pool)
 
+        hits1, miss1 = self.cache.snapshot()
         stats = ExecStats(
             kernel_impl=self.kernel_impl,
             op_counts={OP_TAGS[i]: c for i, c in enumerate(counts) if c},
             op_wall_s={OP_TAGS[i]: wall[i] for i, c in enumerate(counts) if c},
             kernel_calls=counts[_TAG["FusedKernel"]],
             shape_buckets=self.shape_buckets,
-            kernel_compiles=self.cache.misses - miss0,
-            kernel_cache_hits=self.cache.hits - hits0,
+            kernel_compiles=miss1 - miss0,
+            kernel_cache_hits=hits1 - hits0,
             stage_count=sum(1 for s in stages if s.key is not None),
             lower_s=self.lower_s,
             wall_s=perf() - t_run,
+            faults_injected=(injector.faults_injected - f0)
+            if injector is not None else 0,
+            retries=(injector.retries - r0) if injector is not None else 0,
         )
         return rt.host, self.plan.stats(), stats
 
@@ -639,8 +714,10 @@ def lower(plan: ExecutionPlan, policy=None, fused_step=None,
 
     for op in plan.ops:
         if isinstance(op, HostCommit):
-            emit(None, "HostCommit", lambda rt: rt.commit(),
-                 site=(op.round, -1))
+            def run_commit(rt, _r=op.round):
+                rt.commit_round(_r)
+
+            emit(None, "HostCommit", run_commit, site=(op.round, -1))
             continue
         key = (op.round, op.chunk)
         if not stages or stages[-1][0] != key:

@@ -261,3 +261,127 @@ def test_so2dr_through_the_banded_kernel_matches_the_oracle(dev):
         assert err <= 1e-5, err
         outs.append(out)
     np.testing.assert_array_equal(*outs)
+
+
+# ------------------------------------------- faults, recovery and the service
+
+
+def _svc_job(stencil, n=16, **kw):
+    from repro_torch.serve import StencilJob
+
+    return StencilJob(shape=(520, 264), stencil=stencil, steps=n, d=4,
+                      s_tb=8, k_on=4, **kw)
+
+
+def _interleave(svc, jobs_and_inputs):
+    """ScheduledJobs for ``run_interleaved``, each recording the host
+    array of the runtime it builds (the memory it page-locks)."""
+    from repro_torch.serve import ScheduledJob
+
+    hosts, sched = {}, []
+    for i, (job, x) in enumerate(jobs_and_inputs):
+        compiled = svc.compile_job(job)
+        make = compiled.runtime
+
+        def runtime(*a, _make=make, _i=i, **kw):
+            rt = _make(*a, **kw)
+            hosts[_i] = rt.host
+            return rt
+
+        compiled.runtime = runtime
+        injector = job.faults.injector() if job.faults is not None else None
+        sched.append(ScheduledJob(job_id=i, compiled=compiled, x=x,
+                                  predicted_s=0.0, injector=injector))
+    return sched, hosts
+
+
+def test_two_jobs_interleaved_on_the_card_equal_their_solo_runs(dev):
+    """Each job copies on its own stream under the other's kernels; the
+    outputs are bitwise the solo double-buffered ``cuda_db`` runs."""
+    from repro_torch.core.lower import host_register, host_unregister
+    from repro_torch.serve import StencilService
+    from repro_torch.serve.scheduler import run_interleaved
+
+    svc = StencilService(policy=DispatchPolicy())
+    pairs = [(_svc_job("gradient2d"),
+              RNG.standard_normal((520, 264)).astype(np.float32)),
+             (_svc_job("box2d1r", n=24),
+              RNG.standard_normal((520, 264)).astype(np.float32))]
+    solo = [svc.run_solo(job, x) for job, x in pairs]
+    sched, hosts = _interleave(svc, pairs)
+    fused_stencil_band_db.launches = 0
+    out = run_interleaved(sched, slot_pool=svc.slot_pool)
+    assert fused_stencil_band_db.launches == sum(
+        s.kernel_calls for _, _, s, _, _ in out) > 0
+    for (job, host, stats, _, fault), ref in zip(out, solo):
+        assert fault is None and stats.kernel_impl == "cuda_db"
+        np.testing.assert_array_equal(host, ref.out)
+    svc.slot_pool.assert_balanced()
+    for host in hosts.values():          # unregistered at retirement
+        host_register(host)
+        host_unregister(host)
+
+
+def test_a_job_isolated_mid_flush_unregisters_its_memory(dev):
+    from repro_torch.core.faults import KERNEL_FAULT, FaultPlan, FaultTrigger
+    from repro_torch.core.lower import host_register, host_unregister
+    from repro_torch.serve import StencilService
+    from repro_torch.serve.scheduler import run_interleaved
+
+    svc = StencilService(policy=DispatchPolicy())
+    x = RNG.standard_normal((520, 264)).astype(np.float32)
+    poison = FaultPlan([FaultTrigger(round=1, chunk=1, op_class="FusedKernel",
+                                     kind=KERNEL_FAULT)])
+    pairs = [(_svc_job("box2d1r"), x),
+             (_svc_job("box2d1r", faults=poison), x),
+             (_svc_job("gradient2d"), x)]
+    sched, hosts = _interleave(svc, pairs)
+    out = run_interleaved(sched, slot_pool=svc.slot_pool)
+    (_, h0, _, _, f0), (_, h1, s1, _, f1), (_, h2, _, _, f2) = out
+    assert f0 is None and f2 is None and h1 is None
+    assert f1.last_committed_round == 0 and f1.fault.round == 1
+    assert 0 < s1.kernel_calls
+    svc.slot_pool.assert_balanced()
+    np.testing.assert_array_equal(h0, svc.run_solo(pairs[0][0], x).out)
+    np.testing.assert_array_equal(h2, svc.run_solo(pairs[2][0], x).out)
+    host_register(hosts[1])              # the isolated job's copy
+    host_unregister(hosts[1])
+
+
+@pytest.mark.parametrize("impl", ["cuda_db", "mxu"])
+def test_on_commit_sees_the_committed_rows_and_resume_is_bitwise(dev, impl,
+                                                                 tmp_path):
+    """The hook fires after the round's copies landed: the snapshot of
+    round r equals the eager run of the plan cut after round r; a crash
+    in the last round resumes bitwise from the checkpoint."""
+    import dataclasses
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.faults import KERNEL_FAULT, FaultPlan, FaultTrigger
+    from repro_torch.core.recovery import PlanCheckpointer, run_with_recovery
+
+    name = "gradient2d" if impl == "cuda_db" else "box2d4r"
+    x = RNG.standard_normal((520, 264)).astype(np.float32)
+    plan = compile_plan("so2dr", get_stencil(name), 520, 264, 24, 4, 8, 4)
+    policy = DispatchPolicy() if impl == "cuda_db" else DispatchPolicy(
+        impl=impl)
+    snaps = {}
+    exe = DoubleBufferedExecutor(policy=policy)
+    out, _ = exe.execute(plan, x, on_commit=lambda r, h: snaps.__setitem__(
+        r, h.copy()))
+    assert exe.exec_stats.kernel_impl == impl
+    assert sorted(snaps) == [0, 1, 2]
+    np.testing.assert_array_equal(snaps[2], out)
+    for rnd in (0, 1):
+        cut = dataclasses.replace(plan, ops=tuple(
+            op for op in plan.ops if op.round <= rnd))
+        ref, _ = EagerExecutor(policy=policy).execute(cut, x)
+        np.testing.assert_array_equal(snaps[rnd], ref)
+    faults = FaultPlan([FaultTrigger(round=2, chunk=None, op_class="*",
+                                     kind=KERNEL_FAULT)])
+    exe = DoubleBufferedExecutor(policy=policy)
+    host, _ = run_with_recovery(
+        plan, x, executor=exe, faults=faults,
+        checkpoint=PlanCheckpointer(CheckpointManager(str(tmp_path)), plan))
+    assert exe.exec_stats.resumes == 1
+    np.testing.assert_array_equal(host, out)

@@ -200,15 +200,26 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 
 
 def test_fault_hooks_not_ported_yet_and_executor_registry():
+    """(The name predates the port of the fault hooks.)  The legacy
+    op-at-a-time path rejects the hooks as the JAX package does; the
+    lowered path takes a no-op injector and leaves the output unchanged."""
+    from repro_torch.core.faults import FaultPlan, RetryPolicy
+
     x = _domain(1, 20, 20)
     plan = too.compile_plan("so2dr", tst.get_stencil("box2d1r"), *x.shape,
                             2, 2, 2, 2)
     exe = tex.get_executor("double_buffered", device="cpu")
     assert isinstance(exe, tex.DoubleBufferedExecutor)
-    for kw in ({"injector": object()}, {"retry": object()},
-               {"on_commit": print}):
-        with pytest.raises(NotImplementedError):
-            exe.execute(plan, x, **kw)
+    ref, _ = exe.execute(plan, x)
+    legacy = tex.DoubleBufferedExecutor(lowered=False, device="cpu")
+    for kw in ({"injector": FaultPlan([]).injector()},
+               {"retry": RetryPolicy()}, {"on_commit": print}):
+        with pytest.raises(ValueError, match="lowered"):
+            legacy.execute(plan, x, **kw)
+    out, _ = exe.execute(plan, x, injector=FaultPlan([]).injector(),
+                         retry=RetryPolicy(sleep=lambda s: None))
+    np.testing.assert_array_equal(out, ref)
+    assert exe.exec_stats.faults_injected == exe.exec_stats.retries == 0
     assert tex.get_executor("dry_run").execute(plan)[1] == plan.stats()
     with pytest.raises(ValueError):
         tex.get_executor("dry_run", policy=DispatchPolicy())
