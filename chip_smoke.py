@@ -59,6 +59,29 @@ Phases, none of them caught — any failure exits non-zero:
    oracle.  Records the flush wall beside the main paths' solo walls,
    the modeled makespans interleaved and back to back, each job's
    latency and the service's counters.
+9. sharded: box2d1r on the same domain through ``compile_sharded`` on a
+   (4, 2) mesh with ``k_ici=4``, n=160 (the benchmarks' ``sharded/
+   box2d1r/mesh4x2/k4`` geometry, cut in ``n`` only), run by
+   ``ShardedSimExecutor`` on the card: every rank's band lives on the
+   one card, halos move through a mailbox, each round runs the masked
+   update (plain PyTorch, no kernel of ``repro_torch.kernels``: all
+   three launch counts stay 0).  Within 1e-5 of the oracle; whether it
+   is bitwise equal to phase 4's output is recorded; the executed op
+   counts equal the plan's, one kernel signature.  Records the wall, the
+   host wall per op class and the masked update's CUDA-event ms per
+   rank-step on a rank's band.
+10. hierarchical: the same stencil through ``compile_hierarchical`` on
+   a (2, 2) mesh, ``k_ici=4``, n=16 and a 1 GiB device budget (the
+   benchmarks' hierarchical knobs), so each 19208² band streams through
+   inner SO2DR chunks: bitwise equal to the flat sharded plan of the same
+   n and mesh, and within 1e-5 of the oracle.  Records the inner chunks,
+   both walls, and per rank and round the host set-up around the inner
+   run (the band's trip to the host and back, the inner run's copy of
+   it) beside the inner walk.
+11. elastic: the flat (4, 2) plan of n=16 through ``run_elastic_sharded``
+   with a rank loss at round 1, rank 3: the mesh shrinks to (3, 2), one
+   re-plan, one extra round, within 1e-5 absolute of the fault-free
+   sharded run.  Records its wall beside the fault-free sharded run's.
 
 The line before the last is the card's name and power limit; before it,
 a ``{"kernels": [...]}`` JSON line, and before that the launch shape of
@@ -89,10 +112,14 @@ import torch  # noqa: E402
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core.calibrate import calibrate  # noqa: E402
+from repro_torch.core.distributed import masked_local_steps  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
-    DoubleBufferedExecutor, EagerExecutor)
+    DoubleBufferedExecutor, EagerExecutor, ShardedSimExecutor)
 from repro_torch.core.faults import (  # noqa: E402
-    KERNEL_FAULT, TRANSIENT_TRANSFER, FaultPlan, FaultTrigger, RetryPolicy)
+    KERNEL_FAULT, RANK_LOSS, TRANSIENT_TRANSFER, FaultPlan, FaultTrigger,
+    RetryPolicy)
+from repro_torch.core.hierarchy import (  # noqa: E402
+    HierarchicalPlan, compile_hierarchical)
 from repro_torch.core.lower import (  # noqa: E402
     CompiledPlan, host_register, host_unregister)
 from repro_torch.core.oocore import compile_plan  # noqa: E402
@@ -100,6 +127,7 @@ from repro_torch.core.plan import FusedKernel, fused_box_geometry  # noqa: E402
 from repro_torch.core.recovery import (  # noqa: E402
     PlanCheckpointer, PlanExecutionError, run_with_recovery)
 from repro_torch.core.reference import run_reference  # noqa: E402
+from repro_torch.core.shard import compile_sharded  # noqa: E402
 from repro_torch.core.stencil import get_stencil  # noqa: E402
 from repro_torch.core.tune import TuneSpec, _default_measure, tune  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -113,6 +141,7 @@ from repro_torch.kernels.stencil_multistep import (  # noqa: E402
     fused_stencil_band_plain)
 from repro_torch.kernels.stencil_multistep_db import (  # noqa: E402
     db_launch_shape, fused_stencil_band_db, fused_stencil_band_db_plain)
+from repro_torch.launch.elastic import run_elastic_sharded  # noqa: E402
 from repro_torch.serve import StencilJob, StencilService  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
@@ -124,6 +153,12 @@ MXU_FP32_ABS_TOL = 2e-5           # tests/test_kernels.py:80
 IMPLS = ("reference", "cuda", "cuda_db", "mxu")
 ORACLE_BLOCK_ROWS = 2048
 MAIN_SEED = 20231108              # every main path's input domain
+FULL_SIZE = 38400
+# the sharded phases: benchmarks/run.py's SHARD_MESH and its hierarchical
+# HIER_MESH / HIER_K_ICI / HIER_STEPS / HIER_C_DEV; the sharded phase runs
+# phase 4's n (160 of the dry run's 640), so the two outputs compare
+SHARD_MESH, SHARD_K_ICI, SHARD_STEPS = (4, 2), 4, 160
+HIER_MESH, HIER_STEPS, HIER_C_DEV = (2, 2), 16, 1 << 30
 KERNELS = {
     "cuda": dict(
         fn=fused_stencil_band, plain=fused_stencil_band_plain,
@@ -872,6 +907,217 @@ def phase_service(size: int, out_dir: str) -> None:
             + json.dumps(rec["service_stats"]))
 
 
+def masked_step_ms(plan, rank: int) -> dict:
+    """The masked update of one ShardKernel of ``rank`` on a random band
+    of its shape, CUDA events, per rank-step; with the bound of one step
+    (the band read and written once, its interior's fp32 operations)."""
+    op = next(o for o in plan.streams[rank] if type(o).__name__
+              == "ShardKernel")
+    st = get_stencil(op.stencil)
+    band = torch.randn((op.h, op.w), generator=torch.Generator(
+        device="cuda").manual_seed(11), device="cuda")
+    ms = cuda_ms(lambda: masked_local_steps(band, st, op.steps, op.gy0,
+                                            op.gx0, plan.Y, plan.X),
+                 reps=3) / op.steps
+    nbytes = 2 * op.h * op.w * 4
+    flops = op.flops // op.steps
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    del band
+    torch.cuda.empty_cache()
+    return dict(rank=rank, band=[op.h, op.w], steps=op.steps,
+                ms_per_rank_step=ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                route="plain PyTorch (masked_local_steps)")
+
+
+def run_sharded_sim(plan, x: np.ndarray):
+    """One ShardedSimExecutor run on the card, checked against the plan:
+    every op ran once, one kernel signature, no kernel of
+    ``repro_torch.kernels`` launched."""
+    ex = ShardedSimExecutor()
+    reset_counts()
+    t = time.perf_counter()
+    out, stats = ex.execute(plan, x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = counts()
+    es = ex.exec_stats
+    want = plan.stats()
+    check(sum(launched.values()) == 0, "a kernel launched", launched)
+    check(stats == want and es.kernel_calls == plan.n_ranks * plan.rounds,
+          es.kernel_calls)
+    # a hierarchical plan's own counts add its inner ops, which run inside
+    # the ShardKernel ops and are not the outer program's
+    check(es.op_counts == getattr(plan, "outer", plan).op_counts(),
+          es.op_counts)
+    check(out.shape == x.shape and bool(np.isfinite(out).all()),
+          "output shape or finiteness")
+    rec = dict(wall_s=wall, kernel_calls=es.kernel_calls,
+               halo_ops=want.halo_ops, shape_buckets=es.shape_buckets,
+               kernel_compiles=es.kernel_compiles, op_wall_s=es.op_wall_s,
+               launches=launched)
+    return out, rec, es
+
+
+def phase_sharded(size: int) -> None:
+    name = "box2d1r"
+    with phase("sharded"):
+        x = main_domain(size)
+        plan = compile_sharded(name, size, size, SHARD_STEPS, SHARD_K_ICI,
+                               SHARD_MESH)
+        out, rec, es = run_sharded_sim(plan, x)
+        check(es.shape_buckets == 1 and es.kernel_compiles == 1
+              and plan.stats().kernel_calls == es.kernel_calls,
+              es.shape_buckets, es.kernel_compiles)
+        check(rec["halo_ops"] == 2 * plan.op_counts()["HaloSend"],
+              rec["halo_ops"])
+        rec.update(stencil=name, shape=[size, size], n=SHARD_STEPS,
+                   k_ici=SHARD_K_ICI, mesh=list(SHARD_MESH),
+                   rounds=plan.rounds, ranks=plan.n_ranks)
+        rec["sha256"] = sha256(out)
+        rec["bitwise_equal_main_path_box2d1r"] = (
+            rec["sha256"] == RESULT["main_path_box2d1r"]["sha256"])
+        rec["oracle"] = oracle_check(x, name, SHARD_STEPS, {"sharded": out})
+        del out
+        # rank 2 is a middle row of the mesh: halos on three sides
+        rec["masked_update"] = masked_step_ms(plan, 2)
+        RESULT["sharded"] = rec
+        log(f"sharded {name} mesh {SHARD_MESH} k_ici={SHARD_K_ICI} "
+            f"n={SHARD_STEPS}: {rec['wall_s']:.2f} s, {rec['kernel_calls']} "
+            f"ShardKernel calls, op wall "
+            + json.dumps({k: round(v, 3) for k, v in rec["op_wall_s"].items()})
+            + f"; bitwise equal to the B1 main path: "
+            f"{rec['bitwise_equal_main_path_box2d1r']}; vs oracle "
+            f"{json.dumps(rec['oracle'])}; masked update "
+            f"{rec['masked_update']['ms_per_rank_step']:.3f} ms per "
+            f"rank-step (bound {rec['masked_update']['bound_ms']:.3f} ms)")
+
+
+class _InnerTimes:
+    """Times every inner ``CompiledPlan.execute`` (a hierarchical
+    ShardKernel's nested run) and, inside it, the runtime's host set-up
+    (``validate_domain``'s copy of the band, the slot lease)."""
+
+    def __enter__(self):
+        self.calls = []
+        self._execute, self._runtime = CompiledPlan.execute, \
+            CompiledPlan.runtime
+        orig_execute, orig_runtime, calls = self._execute, \
+            self._runtime, self.calls
+
+        def runtime(compiled, *a, **kw):
+            t = time.perf_counter()
+            rt = orig_runtime(compiled, *a, **kw)
+            calls[-1]["runtime_s"] = time.perf_counter() - t
+            return rt
+
+        def execute(compiled, *a, **kw):
+            calls.append({})
+            t = time.perf_counter()
+            out = orig_execute(compiled, *a, **kw)
+            calls[-1].update(execute_s=time.perf_counter() - t,
+                             walk_s=out[2].wall_s)
+            return out
+
+        CompiledPlan.execute, CompiledPlan.runtime = execute, runtime
+        return self.calls
+
+    def __exit__(self, *exc):
+        CompiledPlan.execute = self._execute
+        CompiledPlan.runtime = self._runtime
+
+
+def phase_hierarchical(size: int) -> None:
+    name = "box2d1r"
+    # the 1 GiB budget at full size; scaled with the domain's area below
+    # it, so a shorter rehearsal expands the shards too
+    c_dev = int(HIER_C_DEV * min(1.0, (size / FULL_SIZE) ** 2))
+    with phase("hierarchical"):
+        x = main_domain(size)
+        plan = compile_hierarchical(name, size, size, HIER_STEPS,
+                                    SHARD_K_ICI, HIER_MESH, c_dev=c_dev,
+                                    inner_engine="so2dr")
+        check(isinstance(plan, HierarchicalPlan) and plan.inner_chunks >= 2,
+              type(plan).__name__)
+        with _InnerTimes() as inner:
+            out, rec, es = run_sharded_sim(plan, x)
+        n_calls = plan.n_ranks * plan.rounds
+        check(len(inner) == n_calls, len(inner))
+        sk_wall = es.op_wall_s["ShardKernel"]
+        walk = sum(c["walk_s"] for c in inner)
+        rec.update(stencil=name, shape=[size, size], n=HIER_STEPS,
+                   k_ici=SHARD_K_ICI, mesh=list(HIER_MESH), c_dev=c_dev,
+                   inner_engine="so2dr", inner_chunks=plan.inner_chunks,
+                   inner_calls=n_calls,
+                   shard_kernel_s_per_rank_round=sk_wall / n_calls,
+                   inner_walk_s_per_rank_round=walk / n_calls,
+                   host_setup_s_per_rank_round=(sk_wall - walk) / n_calls,
+                   inner_copy_s_per_rank_round=sum(
+                       c["runtime_s"] for c in inner) / n_calls,
+                   band_trip_s_per_rank_round=(sk_wall - sum(
+                       c["execute_s"] for c in inner)) / n_calls,
+                   inner_calls_s=inner)
+        flat = compile_sharded(name, size, size, HIER_STEPS, SHARD_K_ICI,
+                               HIER_MESH)
+        out_flat, flat_rec, _ = run_sharded_sim(flat, x)
+        check(np.array_equal(out, out_flat),
+              "hierarchical differs from the flat sharded plan")
+        rec["flat"] = flat_rec
+        rec["bitwise_equal_flat"] = True
+        rec["oracle"] = oracle_check(x, name, HIER_STEPS,
+                                     {"hierarchical": out})
+        del out, out_flat
+        RESULT["hierarchical"] = rec
+        log(f"hierarchical {name} mesh {HIER_MESH} n={HIER_STEPS}, "
+            f"{plan.inner_chunks} inner chunks: {rec['wall_s']:.2f} s "
+            f"(flat {flat_rec['wall_s']:.2f} s), bitwise equal to flat; per "
+            f"rank and round: ShardKernel "
+            f"{rec['shard_kernel_s_per_rank_round']:.3f} s = inner walk "
+            f"{rec['inner_walk_s_per_rank_round']:.3f} s + host set-up "
+            f"{rec['host_setup_s_per_rank_round']:.3f} s (band trip "
+            f"{rec['band_trip_s_per_rank_round']:.3f} s, inner copy "
+            f"{rec['inner_copy_s_per_rank_round']:.3f} s); vs oracle "
+            f"{json.dumps(rec['oracle'])}")
+
+
+def phase_elastic(size: int) -> None:
+    name = "box2d1r"
+    with phase("elastic"):
+        x = main_domain(size)
+        plan = compile_sharded(name, size, size, HIER_STEPS, SHARD_K_ICI,
+                               SHARD_MESH)
+        ref, ref_rec, _ = run_sharded_sim(plan, x)
+        rec = {"stencil": name, "shape": [size, size], "n": HIER_STEPS,
+               "k_ici": SHARD_K_ICI, "mesh": list(SHARD_MESH),
+               "fault_free_sharded_wall_s": ref_rec["wall_s"]}
+        reset_counts()
+        faults = FaultPlan([FaultTrigger(round=1, chunk=3, op_class="*",
+                                         kind=RANK_LOSS)])
+        t = time.perf_counter()
+        out, rep = run_elastic_sharded(plan, x, faults=faults)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t
+        launched = counts()
+        check(sum(launched.values()) == 0, "a kernel launched", launched)
+        check(rep.mesh_history == ((4, 2), (3, 2)) and rep.replans == 1
+              and rep.extra_rounds == 1, rep)
+        err = float(np.abs(out - ref).max())
+        check(err <= FP32_TOL, "elastic vs fault-free", err)
+        rec.update(mesh_history=[list(m) for m in rep.mesh_history],
+                   replans=rep.replans, extra_rounds=rep.extra_rounds,
+                   rounds_executed=rep.rounds_executed,
+                   faults_injected=rep.faults_injected,
+                   max_abs_err_vs_fault_free=err,
+                   bitwise_equal_fault_free=bool(np.array_equal(out, ref)))
+        del out, ref
+        RESULT["elastic"] = rec
+        log(f"elastic {name} mesh {SHARD_MESH} n={HIER_STEPS}, rank 3 lost "
+            f"at round 1: {rec['wall_s']:.2f} s (fault-free sharded run "
+            f"{rec['fault_free_sharded_wall_s']:.2f} s), mesh "
+            f"{rep.mesh_history}, {rep.rounds_executed} rounds run, max "
+            f"|err| vs fault-free {err}")
+
+
 def kernels_line() -> dict:
     out = []
     for impl, key in (("cuda", "main_path_box2d1r"),
@@ -921,6 +1167,9 @@ def main(argv=None) -> int:
     phase_recovery(args.size, out_dir)
     phase_calibrate_tune(args.size, out_dir)
     phase_service(args.size, out_dir)
+    phase_sharded(args.size)
+    phase_hierarchical(args.size)
+    phase_elastic(args.size)
     RESULT["total_s"] = time.perf_counter() - t_all
     line = kernels_line()
     RESULT.update(line)

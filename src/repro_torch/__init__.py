@@ -1,9 +1,10 @@
 """repro_torch: SO2DR on PyTorch and CUDA — the port of ``repro``.
 
 The planners, plan IR, lowering, executors, codecs, cost model,
-calibration and tuner, fault injection and checkpoint/resume of
-``repro.core``, and the stencil service of ``repro.serve``, on PyTorch
-tensors, with the fused-stencil kernels written by hand for
+calibration and tuner, fault injection and checkpoint/resume, and the
+sharded and hierarchical plans (run in lockstep on one device) of
+``repro.core``, the stencil service of ``repro.serve`` and the elastic
+re-planning of ``repro.launch.elastic``, on PyTorch tensors, with the fused-stencil kernels written by hand for
 Hopper (``repro_torch.kernels``).  It imports neither JAX nor ``repro``.
 Importing it builds and loads no kernel: the CUDA library is built the
 first time a kernel launches.  Entry points run on the GPU unless the
@@ -12,12 +13,16 @@ caller passes ``device="cpu"``.
 from .core import (  # noqa: F401
     Box,
     ExecutionPlan,
+    ShardedPlan,
     TransferStats,
     Stencil,
     get_stencil,
     compile_plan,
     compile_plan_nd,
     compile_box_plan,
+    compile_sharded,
+    compile_hierarchical,
+    HierarchicalPlan,
     get_engine,
     get_executor,
     get_codec,
@@ -25,6 +30,7 @@ from .core import (  # noqa: F401
     run_reference,
     Hardware,
     H100_SXM,
+    autotune_sharded,
     tune,
     TuneSpec,
     TuneResult,
@@ -46,12 +52,16 @@ from .serve import JobResult, StencilJob, StencilService  # noqa: F401
 __all__ = [
     "Box",
     "ExecutionPlan",
+    "ShardedPlan",
     "TransferStats",
     "Stencil",
     "get_stencil",
     "compile_plan",
     "compile_plan_nd",
     "compile_box_plan",
+    "compile_sharded",
+    "compile_hierarchical",
+    "HierarchicalPlan",
     "get_engine",
     "get_executor",
     "get_codec",
@@ -59,6 +69,7 @@ __all__ = [
     "run_reference",
     "Hardware",
     "H100_SXM",
+    "autotune_sharded",
     "tune",
     "TuneSpec",
     "TuneResult",

@@ -80,6 +80,10 @@ H100_SXM = Hardware(
     # tensor cores (494.7 TFLOP/s) over the three products of 3xTF32
     peak_mxu_flops=494.7e12 / 3,
     c_vmem=232448,           # shared memory one block can use (227 KB)
+    # NVLink 4: 900 GB/s per GPU, both directions together (data sheet);
+    # the sharded model charges one rank's sends per round against it.
+    # No data-sheet latency: t_ici_latency stays 0 until calibrated.
+    bw_ici=450e9,
 )
 
 

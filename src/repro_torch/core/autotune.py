@@ -1,5 +1,5 @@
 """Automatic run-time configuration selection (the paper's future work);
-port of the single-device half of :mod:`repro.core.autotune`.
+port of :mod:`repro.core.autotune`.
 
 Sec. VII: "We also plan to refine the performance model which can be used
 to automatically select the optimization target between kernel execution
@@ -21,8 +21,9 @@ if the feasible set's best SO2DR config is transfer-bound, more TB steps
 are pointless and it says so.
 
 The sharded (L2) sweep — :class:`ShardedChoice`, :func:`autotune_sharded`
-and :func:`predicted_sharded_makespan` — needs the sharded planner, which
-is not ported yet: those entry points raise :class:`NotImplementedError`.
+and :func:`predicted_sharded_makespan` — ranks mesh decompositions x halo
+depth on plans from :func:`repro_torch.core.shard.compile_sharded`; its
+rankings equal the JAX package's on the same :class:`Hardware`.
 """
 from __future__ import annotations
 
@@ -302,27 +303,127 @@ autotune_box.__doc__ = (autotune_box.__doc__ or "") + "\n\n" + (
     _autotune_box.__doc__ or "")
 
 
+@dataclasses.dataclass(frozen=True)
 class ShardedChoice:
-    """One ranked L2 (sharded) configuration — not ported yet."""
+    """One ranked L2 configuration: mesh decomposition + halo depth
+    (+ halo codec)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SHARDED)
+    mesh: Tuple[int, int]
+    k_ici: int
+    time_s: float
+    bottleneck: str          # "ici" | "kernel"
+    ici_s: float
+    kernel_s: float
+    ici_bytes: int           # total send-side ICI payload (raw)
+    redundancy: float        # plan-derived ghost-wedge overhead
+    codec: str = "identity"  # halo codec ("identity" = raw exchange)
+    ici_wire_bytes: int = 0  # total send-side ICI payload on the wire
+
+    @property
+    def config(self):
+        return dict(mesh=self.mesh, k_ici=self.k_ici, codec=self.codec)
 
 
-_SHARDED = ("the sharded (L2) planner is not ported yet: ShardedChoice, "
-            "autotune_sharded and predicted_sharded_makespan wait for it")
+def _autotune_sharded(
+    st: Stencil,
+    Y: int,
+    n_steps: int,
+    hw: Hardware,
+    n_devices: int = 8,
+    k_ici_grid: Iterable[int] = (1, 2, 4, 8),
+    codecs: Iterable[str] = ("identity",),
+    b_elem: int = 4,
+) -> List[ShardedChoice]:
+    """Rank mesh decomposition x ``k_ici`` for the L2 sharded engine
+    (best first) — the inter-chip companion of :func:`autotune`.
+
+    Every factorization of ``n_devices`` into a ``(rows, cols)`` mesh is
+    swept against the ``k_ici`` grid; each candidate compiles its full
+    :class:`~repro_torch.core.plan.ShardedPlan` (infeasible geometry —
+    indivisible domain, halo deeper than a shard, ``n % k_ici`` — is
+    skipped exactly like the L1 sweep skips infeasible ``k_off``) and is
+    costed from the plan-derived stats alone:
+
+    * ICI time charges the max per-rank send bytes per round — *wire*
+      bytes, so a halo codec shrinks this term — at ``bw_ici`` plus
+      ``t_ici_latency`` per collective phase (two per round on a 2-D
+      mesh) — the latency term is what makes the paper's trade visible:
+      larger ``k_ici`` buys ``1/k`` fewer exchange phases for a
+      near-constant per-step byte cost;
+    * kernel time is the per-rank roofline over the max rank (ghost
+      wedges included), so deeper halos pay their redundant compute.
+
+    ``codecs`` sweeps the halo codec alongside ``(mesh, k_ici)``: the
+    base plan is compiled once per geometry and rewritten per codec by
+    :func:`~repro_torch.core.compress.compress_plan` (which learns the
+    collective vocabulary on sharded plans), so ``ici_wire_bytes``
+    replaces ``ici_bytes`` in the bandwidth term while a non-identity
+    codec is charged one extra ``t_ici_latency`` per exchange phase for
+    its encode/decode stage — zrle/bf16 halos only win when the config
+    is latency-tolerant and bandwidth-bound.  The default grid is
+    identity-only for the same reason the row sweep's is lossless-only:
+    the model charges no accuracy cost.
+
+    The two phases do not overlap in the exchange-then-compute schedule,
+    so the total is their sum.  The per-device schedule knobs
+    ``(d, S_TB, k_on, codec)`` stay orthogonal: compose this sweep with
+    :func:`autotune` to pick the on-device plan each rank runs.
+
+    ``Y`` is the *global framed* domain side (the sharded planner takes
+    the full shape directly — mesh divisibility is part of feasibility).
+    """
+    from .shard import compile_sharded
+
+    if hw.bw_ici <= 0:
+        raise ValueError(f"hardware {hw.name!r} has no modeled ICI bandwidth")
+    out: List[ShardedChoice] = []
+    for n_row in range(1, n_devices + 1):
+        if n_devices % n_row:
+            continue
+        mesh = (n_row, n_devices // n_row)
+        for k_ici in k_ici_grid:
+            try:
+                base = compile_sharded(st.name, Y, Y, n_steps, k_ici, mesh,
+                                       itemsize=b_elem)
+            except ValueError:
+                continue
+            phases = (mesh[0] > 1) + (mesh[1] > 1)   # row + col exchanges
+            # kernel ops are codec-independent: roofline once per geometry
+            per = [base.per_rank_stats(r) for r in range(base.n_ranks)]
+            k_mem = max(p.kernel_hbm_bytes for p in per) / hw.bw_dmem
+            k_cmp = max(p.flops for p in per) / hw.peak_vpu_flops
+            kernel_s = max(k_mem, k_cmp)
+            for codec in codecs:
+                try:
+                    plan = (base if codec == "identity"
+                            else compress_plan(base, codec))
+                except ValueError:
+                    continue   # codec can't handle this itemsize
+                _, stats = DryRunExecutor().execute(plan)
+                # a non-identity codec stages encode/decode around each
+                # exchange phase: one extra latency charge per phase
+                lat = phases * hw.t_ici_latency * (2 if codec != "identity"
+                                                   else 1)
+                ici_s = plan.rounds * (
+                    lat + plan.collective_wire_bytes_per_round / hw.bw_ici)
+                out.append(ShardedChoice(
+                    mesh=mesh, k_ici=k_ici, time_s=ici_s + kernel_s,
+                    bottleneck="ici" if ici_s >= kernel_s else "kernel",
+                    ici_s=ici_s, kernel_s=kernel_s,
+                    ici_bytes=stats.ici_bytes, redundancy=stats.redundancy,
+                    codec=codec, ici_wire_bytes=stats.ici_wire_bytes))
+    out.sort(key=lambda c: c.time_s)
+    return out
 
 
-def _autotune_sharded(*args, **kwargs):
-    """The L2 sharded sweep — not ported yet; raises
-    :class:`NotImplementedError`."""
-    raise NotImplementedError(_SHARDED)
-
-
-def autotune_sharded(*args, **kwargs):
-    """Deprecated alias of the L2 sharded sweep — not ported yet."""
+def autotune_sharded(*args, **kwargs) -> List[ShardedChoice]:
+    """Deprecated alias of the L2 sharded sweep — use :func:`repro_torch.tune`."""
     _deprecated_tuner("autotune_sharded")
     return _autotune_sharded(*args, **kwargs)
+
+
+autotune_sharded.__doc__ = (autotune_sharded.__doc__ or "") + "\n\n" + (
+    _autotune_sharded.__doc__ or "")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -417,9 +518,30 @@ def predicted_makespan(plan: ExecutionPlan, hw: Hardware) -> float:
 
 
 def predicted_sharded_makespan(plan, hw: Hardware) -> float:
-    """Modeled makespan of one sharded plan — not ported yet; raises
-    :class:`NotImplementedError`."""
-    raise NotImplementedError(_SHARDED)
+    """Modeled makespan of one sharded (or hierarchical) plan: the ICI
+    exchange term plus the per-rank kernel roofline, priced exactly like
+    one :func:`autotune_sharded` candidate.
+
+    The ICI term charges *wire* bytes — a halo codec on the plan shrinks
+    it, at the cost of one extra ``t_ici_latency`` per exchange phase
+    for the encode/decode stage.  For a hierarchical plan the per-rank
+    stats already roll the nested streaming program up, so the inner
+    H2D/D2H traffic rides the kernel term's memory side the same way
+    the sharded sweep sees ghost-wedge redundancy."""
+    if hw.bw_ici <= 0:
+        raise ValueError(f"hardware {hw.name!r} has no modeled ICI bandwidth")
+    mesh = plan.mesh_shape
+    phases = (mesh[0] > 1) + (mesh[1] > 1)
+    codec = getattr(plan, "codec", "")
+    lat = phases * hw.t_ici_latency * (2 if codec not in ("", "identity")
+                                       else 1)
+    ici_s = plan.rounds * (
+        lat + plan.collective_wire_bytes_per_round / hw.bw_ici)
+    per = [plan.per_rank_stats(r) for r in range(plan.n_ranks)]
+    k_mem = max(p.kernel_hbm_bytes + p.h2d_wire_bytes + p.d2h_wire_bytes
+                + p.buffer_bytes for p in per) / hw.bw_dmem
+    k_cmp = max(p.flops for p in per) / hw.peak_vpu_flops
+    return ici_s + max(k_mem, k_cmp)
 
 
 def optimization_target(st: Stencil, sz: int, n_steps: int,

@@ -24,7 +24,9 @@ wall-clock time.  This module keeps the two halves of that idea apart:
 :func:`compress_plan` is the rewrite pass: it wraps every ``H2D``/``D2H``
 of a compiled :class:`~repro_torch.core.plan.ExecutionPlan` in a
 ``Compress``/``Decompress`` pair carrying the codec id and the raw/wire
-byte counts — no planner changes, any engine's schedule compresses.
+byte counts — no planner changes, any engine's schedule compresses.  On
+a :class:`~repro_torch.core.plan.ShardedPlan` it wraps the halo
+exchange instead (``HaloCompress``/``HaloDecompress``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,10 @@ from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 
-from .plan import D2H, H2D, Compress, Decompress, ExecutionPlan, Op
+from .plan import (
+    D2H, H2D, Compress, Decompress, ExecutionPlan, HaloCompress,
+    HaloDecompress, HaloRecv, HaloSend, Op, ShardOp, ShardedPlan,
+)
 
 __all__ = [
     "Codec",
@@ -225,16 +230,34 @@ def get_codec(codec: Union[str, Codec]) -> Codec:
 def compress_plan(plan, codec: Union[str, Codec]):
     """Rewrite a compiled plan so every transfer goes through ``codec``.
 
-    Each ``H2D``/``D2H`` of an :class:`~repro_torch.core.plan.ExecutionPlan`
-    is wrapped in a ``Compress``/``Decompress`` pair that carries the
-    codec id, the raw byte count, and the modeled wire byte count; the
-    wrapped transfer op itself is untouched (its row provenance and raw
-    ``nbytes`` stay authoritative).  Everything else — kernels, buffer
-    traffic, commit barriers, op order — is preserved, so executors that
-    ignore the codec ops would still compute the same result.  Sharded
-    plans are not ported yet."""
+    For an :class:`~repro_torch.core.plan.ExecutionPlan` each
+    ``H2D``/``D2H`` is wrapped in a ``Compress``/``Decompress`` pair that
+    carries the codec id, the raw byte count, and the modeled wire byte
+    count; the wrapped transfer op itself is untouched (its row
+    provenance and raw ``nbytes`` stay authoritative).  Everything else —
+    kernels, buffer traffic, commit barriers, op order — is preserved, so
+    executors that ignore the codec ops would still compute the same
+    result.
+
+    For a :class:`~repro_torch.core.plan.ShardedPlan` the pass wraps the
+    collective vocabulary instead: every ``HaloSend`` gains a
+    ``HaloCompress`` before it, every real ``HaloRecv`` a
+    ``HaloDecompress`` after it (mesh-edge zero fills are never
+    wrapped), so ``ici_wire_bytes`` diverges from ``ici_bytes`` exactly
+    like the H2D wire accounting does.  A
+    :class:`~repro_torch.core.hierarchy.HierarchicalPlan` compresses its
+    outer sharded plan (inner streams take their own codec at
+    :func:`~repro_torch.core.hierarchy.compile_hierarchical` time).
+    Anything else raises :class:`TypeError`."""
+    if isinstance(plan, ShardedPlan):
+        return _compress_sharded(plan, codec)
     if not isinstance(plan, ExecutionPlan):
-        raise TypeError(f"compress_plan takes an ExecutionPlan, got "
+        if isinstance(getattr(plan, "outer", None), ShardedPlan):
+            # HierarchicalPlan (duck-typed: avoids a hierarchy import cycle)
+            return dataclasses.replace(
+                plan, outer=_compress_sharded(plan.outer, codec))
+        raise TypeError(f"compress_plan takes an ExecutionPlan, a "
+                        f"ShardedPlan or a HierarchicalPlan, got "
                         f"{type(plan).__name__}")
     if plan.codec:
         raise ValueError(
@@ -263,3 +286,41 @@ def compress_plan(plan, codec: Union[str, Codec]):
         else:
             ops.append(op)
     return dataclasses.replace(plan, ops=tuple(ops), codec=c.name)
+
+
+def _compress_sharded(plan: ShardedPlan,
+                      codec: Union[str, Codec]) -> ShardedPlan:
+    """The :func:`compress_plan` rewrite over a sharded plan's streams."""
+    if plan.codec:
+        raise ValueError(
+            f"plan is already compressed with {plan.codec!r}; nesting "
+            f"codecs would double-count wire bytes (rewrite the base plan)")
+    c = get_codec(codec)
+    if c.itemsizes is not None and plan.itemsize not in c.itemsizes:
+        raise ValueError(
+            f"codec {c.name!r} supports itemsize(s) {c.itemsizes}, but the "
+            f"plan has itemsize {plan.itemsize}")
+    streams: list[Tuple[ShardOp, ...]] = []
+    for stream in plan.streams:
+        ops: list[ShardOp] = []
+        for op in stream:
+            if isinstance(op, HaloSend):
+                meta = dict(
+                    codec=c.name, rank=op.rank, peer=op.dst, axis=op.axis,
+                    side=op.side, direction="send", raw_nbytes=op.nbytes,
+                    wire_nbytes=c.wire_nbytes(op.nbytes, plan.itemsize),
+                    round=op.round, phase=op.phase,
+                )
+                ops.extend([HaloCompress(**meta), op])
+            elif isinstance(op, HaloRecv) and op.src >= 0:
+                meta = dict(
+                    codec=c.name, rank=op.rank, peer=op.src, axis=op.axis,
+                    side=op.side, direction="recv", raw_nbytes=op.nbytes,
+                    wire_nbytes=c.wire_nbytes(op.nbytes, plan.itemsize),
+                    round=op.round, phase=op.phase,
+                )
+                ops.extend([op, HaloDecompress(**meta)])
+            else:
+                ops.append(op)
+        streams.append(tuple(ops))
+    return dataclasses.replace(plan, streams=tuple(streams), codec=c.name)

@@ -1,5 +1,6 @@
 """Pluggable executors over :class:`repro_torch.core.plan.ExecutionPlan`
-(the single-device half of :mod:`repro.core.executor`, ported).
+and :class:`~repro_torch.core.plan.ShardedPlan` (the port of
+:mod:`repro.core.executor`, without its multi-process backend).
 
 Three interpreters of the same op schedule:
 
@@ -11,7 +12,15 @@ Three interpreters of the same op schedule:
   N_strm = 3) with real CUDA streams; nothing blocks until a
   ``HostCommit`` barrier drains the staged D2H boxes.
 * :class:`DryRunExecutor` — walks no device work at all and returns the
-  plan-derived :class:`TransferStats`.
+  plan-derived :class:`TransferStats` (also of sharded plans).
+* :class:`ShardedSimExecutor` — lowers a sharded or hierarchical plan's
+  per-rank streams to lockstep stage programs
+  (:func:`repro_torch.core.lower.lower_sharded`) and runs them on one
+  device, halos moving through a mailbox.
+
+The JAX package's ``shard_map`` backend waits for the multi-process
+backend: ``get_executor("shard_map")`` raises
+:class:`NotImplementedError`.
 
 The device executors run plans through the lowering layer by default
 (:func:`repro_torch.core.lower.lower`); ``lowered=False`` falls back to the
@@ -32,7 +41,9 @@ import torch
 
 from .compress import get_codec
 from .device import resolve_device
-from .lower import ExecStats, KernelCache, lower, to_device, validate_domain
+from .lower import (
+    ExecStats, KernelCache, lower, lower_sharded, to_device, validate_domain,
+)
 from .plan import (
     BufferRead, BufferWrite, Compress, D2H, Decompress, ExecutionPlan,
     FusedKernel, H2D, HostCommit, TransferStats,
@@ -41,7 +52,7 @@ from .reference import multi_step_band, multi_step_box
 
 __all__ = [
     "EagerExecutor", "DoubleBufferedExecutor", "DryRunExecutor",
-    "get_executor", "EXECUTORS",
+    "ShardedSimExecutor", "get_executor", "EXECUTORS",
 ]
 
 # fused-step implementation signature:
@@ -320,20 +331,76 @@ class DryRunExecutor:
         return None, plan.stats()
 
 
+class ShardedSimExecutor:
+    """Single-device lockstep simulator for sharded plans.
+
+    Lowers the per-rank op streams through
+    :func:`repro_torch.core.lower.lower_sharded` (slot-bound closures,
+    shared halo mailbox, one cached kernel signature for every rank x
+    round) for ``device`` (None means ``cuda``) and walks the global
+    phases in barrier order.  Every rank's band lives on that one
+    device; the masked update is plain PyTorch.
+
+    Hierarchical plans (:mod:`repro_torch.core.hierarchy`) run through
+    the same entry point: the lowering layer expands each ShardKernel
+    into its rank's nested stage program, and ``slot_pool`` (optional,
+    shared with the serving layer) supplies the chunk-slot storage those
+    inner programs lease per round."""
+
+    name = "sharded_sim"
+    supports_injection = True
+
+    def __init__(self, slot_pool=None, kernel_cache=None, device=None):
+        self.kernel_cache = kernel_cache if kernel_cache is not None \
+            else KernelCache()
+        self.slot_pool = slot_pool
+        self.device = resolve_device(device)
+        self.exec_stats: Optional[ExecStats] = None
+        self._lowered_memo = None
+
+    def _compiled(self, plan):
+        memo = self._lowered_memo
+        if memo is not None and memo[0] is plan:
+            return memo[1]
+        compiled = lower_sharded(plan, kernel_cache=self.kernel_cache,
+                                 device=self.device)
+        self._lowered_memo = (plan, compiled)
+        return compiled
+
+    def execute(self, plan, x: np.ndarray,
+                injector=None, retry=None, on_commit=None,
+                ) -> Tuple[np.ndarray, TransferStats]:
+        host, stats, exec_stats = self._compiled(plan).execute(
+            x, injector=injector, retry=retry, slot_pool=self.slot_pool)
+        exec_stats.executor = self.name
+        self.exec_stats = exec_stats
+        if on_commit is not None:
+            # a sharded plan stores host state once, at the end: its
+            # whole run is one commit of the final round
+            on_commit(plan.rounds - 1, host)
+        return host, stats
+
+
 EXECUTORS = {e.name: e for e in
-             (EagerExecutor, DoubleBufferedExecutor, DryRunExecutor)}
+             (EagerExecutor, DoubleBufferedExecutor, DryRunExecutor,
+              ShardedSimExecutor)}
 
 
 def get_executor(name: str, fused_step: Optional[FusedStep] = None,
                  policy=None, device=None):
+    if name == "shard_map":
+        raise NotImplementedError(
+            "the shard_map executor is not ported yet: it waits for the "
+            "torch.distributed backend (ROADMAP A10c); run sharded plans "
+            "on one device with 'sharded_sim'")
     try:
         cls = EXECUTORS[name]
     except KeyError:
         raise KeyError(f"unknown executor {name!r}; known: {sorted(EXECUTORS)}")
-    if cls is DryRunExecutor:
+    if cls in (DryRunExecutor, ShardedSimExecutor):
         if fused_step is not None or policy is not None:
             raise ValueError(
                 f"executor {name!r} takes no fused_step/policy — it never "
                 "dispatches single-device FusedKernel ops")
-        return cls()
+        return cls() if cls is DryRunExecutor else cls(device=device)
     return cls(fused_step, policy=policy, device=device)

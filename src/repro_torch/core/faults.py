@@ -15,7 +15,9 @@ real flakiness:
 * ``kernel_fault`` — a terminal device-side failure; the run dies with
   the last committed round intact.
 * ``rank_loss`` — a mesh peer disappeared (preemption); it addresses a
-  rank of a sharded plan.
+  rank of a sharded plan, and the elastic harness in
+  :mod:`repro_torch.launch.elastic` re-plans the remaining rounds on the
+  surviving mesh.
 * ``slot_exhausted`` — device slot storage ran out; terminal for the
   run, but the leased slots still return to the pool (the try/finally
   discipline in :meth:`repro_torch.core.lower.CompiledPlan.execute`).

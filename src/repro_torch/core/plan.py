@@ -1,6 +1,6 @@
 """Typed op IR for out-of-core stencil schedules (plan/execute split);
-the single-device half of :mod:`repro.core.plan`, ported (the sharded
-op classes and ``ShardedPlan`` are not ported yet).
+the port of :mod:`repro.core.plan`: the single-device ops and
+:class:`ExecutionPlan`, and the sharded ops and :class:`ShardedPlan`.
 
 Every engine in :mod:`repro_torch.core.oocore` is a *planner*: it compiles
 ``(domain shape, stencil, d, k_off, k_on, n)`` into an
@@ -51,13 +51,16 @@ register/buffer data dependencies hold (the double-buffered executor
 exploits exactly this to prefetch chunk ``i+1``'s H2D under chunk ``i``'s
 kernels).
 
-The JAX package's deprecated row-range accessors (``host_lo``,
-``keep_top``, ...) are not ported: the port has no pre-box callers.
+The JAX package's deprecated row-range accessors of the single-device
+ops (``host_lo``, ``keep_top``, ...) are not ported: the port has no
+pre-box callers.  Every op's ``repr`` equals the JAX package's for the
+same plan, so :func:`~repro_torch.core.recovery.plan_fingerprint` does too.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 __all__ = [
@@ -66,6 +69,9 @@ __all__ = [
     "Compress", "Decompress",
     "Op", "ExecutionPlan", "PlanBuilder",
     "fused_kernel_geometry", "fused_box_geometry",
+    "DeviceShard", "HaloSend", "HaloRecv", "ShardLoad", "ShardStore",
+    "ShardKernel", "HaloCompress", "HaloDecompress", "ShardOp",
+    "ShardedPlan",
 ]
 
 
@@ -447,6 +453,365 @@ class ExecutionPlan:
                 out[-1][1].append(op)
             else:
                 out.append((key, [op]))
+        return out
+
+
+# --------------------------------------------------------------------------
+# Sharded plans (L2 / inter-chip): per-device op streams + halo exchange.
+#
+# The L2 engine (the JAX package's :mod:`repro.core.distributed`) trades
+# redundant ghost-wedge computation for k_ici-step communication-avoiding
+# halo exchange — the paper's core trade one memory level up.  The IR below
+# makes that schedule a first-class plan: a :class:`ShardedPlan` holds one
+# op stream per :class:`DeviceShard` plus a global barrier structure
+# (``barriers``), and its accounting — ICI bytes, ghost-wedge redundancy,
+# collective bytes per round — is derived from the op streams exactly
+# like :class:`TransferStats` is derived from an :class:`ExecutionPlan`.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceShard:
+    """Provenance of one device's sub-domain in a sharded plan.
+
+    ``(row, col)`` are mesh coordinates; ``[y0, y1) x [x0, x1)`` is the
+    owned region of the global framed domain (uniform across ranks — the
+    shard_map backend requires even divisibility)."""
+
+    rank: int
+    row: int
+    col: int
+    y0: int
+    y1: int
+    x0: int
+    x1: int
+
+    @property
+    def box(self) -> Box:
+        """The owned region as a :class:`Box` (the plan IR's coordinate
+        type — ShardLoad/ShardStore carry the same box)."""
+        return Box((self.y0, self.x0), (self.y1, self.x1))
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.y1 - self.y0, self.x1 - self.x0)
+
+
+def _deprecated(name: str, instead: str):
+    warnings.warn(
+        f"{name} is deprecated; read the op's {instead} instead",
+        DeprecationWarning, stacklevel=3)
+
+
+class _ShardRegionOp:
+    """Deprecated scalar accessors shared by ShardLoad/ShardStore."""
+
+    @property
+    def y0(self) -> int:
+        _deprecated(f"{type(self).__name__}.y0", "box.lo")
+        return self.box.lo[0]
+
+    @property
+    def y1(self) -> int:
+        _deprecated(f"{type(self).__name__}.y1", "box.hi")
+        return self.box.hi[0]
+
+    @property
+    def x0(self) -> int:
+        _deprecated(f"{type(self).__name__}.x0", "box.lo")
+        return self.box.lo[1]
+
+    @property
+    def x1(self) -> int:
+        _deprecated(f"{type(self).__name__}.x1", "box.hi")
+        return self.box.hi[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLoad(_ShardRegionOp):
+    """Place the shard's owned region on its device (the once-per-run
+    H2D of the L2 schedule — the domain then stays resident)."""
+
+    rank: int
+    box: Box
+    nbytes: int
+    round: int
+    phase: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardStore(_ShardRegionOp):
+    """Stage the shard's owned region back to the host (committed at the
+    final barrier)."""
+
+    rank: int
+    box: Box
+    nbytes: int
+    round: int
+    phase: int
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloSend:
+    """Send ``depth`` edge rows/columns of this rank's band to ``dst``.
+
+    ``axis`` 0 exchanges rows of the owned band; ``axis`` 1 exchanges
+    columns of the *row-extended* band (corners ride along — the
+    ppermute ordering of :mod:`repro.core.distributed`).  ``side`` names
+    the edge of the sender's band: ``"hi"`` (bottom/right) payloads
+    attach at the receiver's ``"lo"`` (top/left) edge and vice versa.
+    ``nbytes`` is the send-side ICI payload."""
+
+    rank: int        # src shard
+    dst: int         # dst shard
+    axis: int        # 0 = rows, 1 = columns
+    side: str        # "lo" | "hi" — sender's edge
+    depth: int       # k_ici * r rows/cols
+    nbytes: int
+    round: int
+    phase: int
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloRecv:
+    """Attach a neighbour's halo payload at this rank's ``side`` edge.
+
+    ``src == -1`` marks a mesh edge: the band is zero-padded instead
+    (exactly what ``ppermute`` leaves for non-receivers) and no ICI
+    traffic occurs (``nbytes == 0``).  Every real recv (``src >= 0``)
+    pairs 1:1 with a :class:`HaloSend` in the source rank's stream."""
+
+    rank: int        # dst shard (owner of this stream)
+    src: int         # src shard; -1 = mesh edge (zero fill)
+    axis: int
+    side: str        # "lo" | "hi" — receiver's edge
+    depth: int
+    nbytes: int      # 0 when src == -1
+    round: int
+    phase: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardKernel:
+    """``steps`` fused, globally-masked stencil steps on the extended
+    band, cropped back to the owned region.
+
+    The band covers ``[gy0, gy0+h) x [gx0, gx0+w)`` in global
+    coordinates (origin = owned region minus the ``k_ici*r`` halo).
+    ``elements`` counts every updated element per round — the owned
+    interior *plus* the redundant ghost wedges; ``hbm_bytes`` is one
+    band read + one band write per fused call, mirroring
+    :func:`fused_box_geometry`'s model."""
+
+    rank: int
+    stencil: str
+    steps: int
+    gy0: int
+    gx0: int
+    h: int
+    w: int
+    hbm_bytes: int
+    flops: int
+    elements: int
+    round: int
+    phase: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _HaloCodecOp:
+    """Shared shape of the encode/decode halves of a compressed halo.
+
+    The collective analogue of :class:`_CodecOp`: both halves carry the
+    codec id, the raw and modeled-wire byte counts, and the wrapped
+    ``HaloSend``/``HaloRecv``'s edge provenance, so
+    :func:`repro_torch.core.compress.compress_plan` builds one metadata dict
+    per exchange and instantiates the pair from it.  ``wire_nbytes`` is
+    the codec's deterministic analytic model — ICI accounting stays a
+    property of the plan."""
+
+    codec: str
+    rank: int        # owner of the stream this op lives in
+    peer: int        # the other end of the exchange (dst for send side)
+    axis: int
+    side: str        # the wrapped op's edge
+    direction: str   # "send" | "recv"
+    raw_nbytes: int
+    wire_nbytes: int
+    round: int
+    phase: int
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloCompress(_HaloCodecOp):
+    """Encode a halo payload before it crosses the ICI link.
+
+    Emitted immediately *before* the ``HaloSend`` it wraps; the wire
+    then carries ``wire_nbytes`` instead of ``raw_nbytes``."""
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloDecompress(_HaloCodecOp):
+    """Decode a received halo payload on the far side of the ICI link.
+
+    Emitted immediately *after* the real ``HaloRecv`` it wraps (edge
+    recvs — ``src == -1`` zero fills — are never wrapped)."""
+
+
+ShardOp = Union[ShardLoad, ShardStore, HaloSend, HaloRecv, ShardKernel,
+                HaloCompress, HaloDecompress]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedPlan:
+    """A compiled multi-device schedule: one op stream per shard.
+
+    ``barriers`` is the global barrier structure: a tuple of phase
+    labels; every op's ``phase`` indexes into it, and an executor must
+    run phase ``p`` of *every* stream before any op of phase ``p+1``
+    (within a phase, rank order is free — sends and recvs live in
+    separate phases, so the lockstep is deadlock-free by construction).
+    """
+
+    stencil: str
+    Y: int
+    X: int
+    itemsize: int
+    n: int
+    k_ici: int
+    mesh_shape: Tuple[int, int]
+    radius: int
+    shards: Tuple[DeviceShard, ...]
+    streams: Tuple[Tuple[ShardOp, ...], ...]
+    barriers: Tuple[str, ...]
+    exact_elements: int
+    codec: str = ""     # "" = uncompressed halos; else the halo codec name
+    trailing: Tuple[int, ...] = ()  # unsharded trailing axes (modeled only)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.Y, self.X)
+
+    @property
+    def n_ranks(self) -> int:
+        return len(self.shards)
+
+    @property
+    def rounds(self) -> int:
+        return self.n // self.k_ici
+
+    def __len__(self) -> int:
+        return sum(len(s) for s in self.streams)
+
+    def _accumulate(self, s: "TransferStats", ops) -> "TransferStats":
+        for op in ops:
+            if isinstance(op, ShardLoad):
+                s.h2d_bytes += op.nbytes
+                s.h2d_wire_bytes += op.nbytes
+            elif isinstance(op, ShardStore):
+                s.d2h_bytes += op.nbytes
+                s.d2h_wire_bytes += op.nbytes
+            elif isinstance(op, HaloSend):
+                s.ici_bytes += op.nbytes
+                s.ici_wire_bytes += op.nbytes
+                s.halo_ops += 1
+            elif isinstance(op, HaloRecv):
+                if op.src >= 0:
+                    s.halo_ops += 1
+            elif isinstance(op, HaloCompress):
+                # the wrapped send contributed raw bytes to the wire
+                # accumulator above; the codec swaps them for wire bytes
+                s.codec_ops += 1
+                s.ici_wire_bytes += op.wire_nbytes - op.raw_nbytes
+            elif isinstance(op, HaloDecompress):
+                s.codec_ops += 1
+            elif isinstance(op, ShardKernel):
+                s.kernel_calls += 1
+                s.kernel_hbm_bytes += op.hbm_bytes
+                s.flops += op.flops
+                s.elements_computed += op.elements
+            else:  # pragma: no cover - planner/IR version skew
+                raise TypeError(f"unknown sharded op {op!r}")
+        return s
+
+    def stats(self) -> TransferStats:
+        """Aggregate :class:`TransferStats` over every rank's stream —
+        the single source of truth for the sharded accounting, derived
+        from the plan with zero device work (the dry-run executor
+        returns it untouched)."""
+        s = TransferStats(exact_elements=self.exact_elements)
+        for stream in self.streams:
+            self._accumulate(s, stream)
+        return s
+
+    def per_rank_stats(self, rank: int) -> TransferStats:
+        """One rank's accounting; ``exact_elements`` is the rank's share
+        (``n x`` its owned-interior elements)."""
+        sh = self.shards[rank]
+        r = self.radius
+        rows = max(0, min(sh.y1, self.Y - r) - max(sh.y0, r))
+        cols = max(0, min(sh.x1, self.X - r) - max(sh.x0, r))
+        s = TransferStats(exact_elements=self.n * rows * cols)
+        return self._accumulate(s, self.streams[rank])
+
+    def ici_bytes_per_round(self, rank: int) -> int:
+        """Plan-derived send-side ICI bytes one rank pushes per round
+        (uniform across rounds — round 0 is read off the stream)."""
+        return sum(op.nbytes for op in self.streams[rank]
+                   if isinstance(op, HaloSend) and op.round == 0)
+
+    @property
+    def collective_bytes_per_round(self) -> int:
+        """Per-rank ICI bytes per round, derived from the op streams
+        (max over ranks).  For a rank with neighbours on both sides of
+        both mesh axes this equals the analytic formula in
+        :func:`repro_torch.core.distributed.collective_bytes_per_round`; edge
+        ranks push less (no payload crosses a mesh boundary)."""
+        return max((self.ici_bytes_per_round(r) for r in range(self.n_ranks)),
+                   default=0)
+
+    def ici_wire_bytes_per_round(self, rank: int) -> int:
+        """Round-0 *wire* bytes one rank pushes: raw send payloads plus
+        any halo-codec wire-vs-raw adjustments (equal to
+        :meth:`ici_bytes_per_round` on uncompressed plans)."""
+        total = 0
+        for op in self.streams[rank]:
+            if op.round != 0:
+                continue
+            if isinstance(op, HaloSend):
+                total += op.nbytes
+            elif isinstance(op, HaloCompress):
+                total += op.wire_nbytes - op.raw_nbytes
+        return total
+
+    @property
+    def collective_wire_bytes_per_round(self) -> int:
+        """Wire-byte counterpart of :attr:`collective_bytes_per_round` —
+        what the autotuner charges against ``bw_ici`` once halos are
+        routed through a codec."""
+        return max((self.ici_wire_bytes_per_round(r)
+                    for r in range(self.n_ranks)), default=0)
+
+    def breakdown(self) -> Dict[str, int]:
+        """Per-category byte totals — the Fig. 7 bars plus the L2 ICI
+        category (same keys as :meth:`ExecutionPlan.breakdown`)."""
+        return self.stats().breakdown()
+
+    def op_counts(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for stream in self.streams:
+            for op in stream:
+                k = type(op).__name__
+                out[k] = out.get(k, 0) + 1
+        return out
+
+    def phases(self) -> List[Tuple[str, List[ShardOp]]]:
+        """Ops grouped by global phase, in barrier order (rank order
+        within a phase) — the structure executors walk."""
+        out: List[Tuple[str, List[ShardOp]]] = [
+            (label, []) for label in self.barriers]
+        for stream in self.streams:
+            for op in stream:
+                out[op.phase][1].append(op)
         return out
 
 

@@ -72,11 +72,12 @@ class PlanExecutionError(RuntimeError):
 
 
 def plan_fingerprint(plan) -> str:
-    """Stable content digest of a plan (works for both
-    :class:`~repro_torch.core.plan.ExecutionPlan` and a sharded plan):
-    every field of every op is a
-    plain value, so the dataclass repr is deterministic across
-    processes."""
+    """Stable content digest of a plan (an
+    :class:`~repro_torch.core.plan.ExecutionPlan`, a
+    :class:`~repro_torch.core.plan.ShardedPlan` or a
+    :class:`~repro_torch.core.hierarchy.HierarchicalPlan`): every field of
+    every op is a plain value, so the dataclass repr is deterministic
+    across processes and equals the JAX package's."""
     return hashlib.sha256(repr(plan).encode()).hexdigest()[:16]
 
 

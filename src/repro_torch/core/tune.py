@@ -16,8 +16,9 @@ of :mod:`repro.core.tune`).
 bucketed small domains on the caller's device: **model proposes,
 hardware disposes**.  A candidate is only promoted over the modeled
 incumbent when its measured time is no worse than the incumbent's
-measured time.  The sharded mode needs the sharded planner, which is not
-ported yet, and raises :class:`NotImplementedError`.
+measured time.  The sharded mode ranks mesh x ``k_ici`` (x halo codec)
+on sharded dry-run plans and stays modeled: its refinement would need a
+real mesh.
 """
 from __future__ import annotations
 
@@ -26,7 +27,10 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 from .analytic import EngineTimes, Hardware, model_times
-from .autotune import BoxChoice, Choice, _autotune, _autotune_box
+from .autotune import (
+    BoxChoice, Choice, ShardedChoice,
+    _autotune, _autotune_box, _autotune_sharded,
+)
 from .calibrate import DeviceProfile, resolve_hardware
 from .lower import ExecStats
 
@@ -156,6 +160,17 @@ def _from_box(c: BoxChoice, pid: Optional[str]) -> TuneResult:
                     redundancy=c.redundancy))
 
 
+def _from_sharded(c: ShardedChoice, pid: Optional[str]) -> TuneResult:
+    return TuneResult(
+        mode="sharded", engine="sharded",
+        config=dict(engine="sharded", mesh=c.mesh, k_ici=c.k_ici,
+                    codec=c.codec),
+        modeled_s=c.time_s, bottleneck=c.bottleneck, profile_id=pid,
+        extras=dict(ici_s=c.ici_s, kernel_s=c.kernel_s,
+                    ici_bytes=c.ici_bytes, ici_wire_bytes=c.ici_wire_bytes,
+                    redundancy=c.redundancy))
+
+
 # ------------------------------------------------------- measured runs
 
 # interior-size buckets for refinement runs: candidates measure on the
@@ -254,7 +269,9 @@ def _default_measure(hw: Hardware, profile, device=None) -> Callable:
     def measure(spec: TuneSpec, res: TuneResult):
         if res.mode == "row":
             return _measure_row(spec, res, hw, profile, device)
-        return _measure_box(spec, res, hw, profile, device)
+        if res.mode == "box":
+            return _measure_box(spec, res, hw, profile, device)
+        return None   # sharded refinement needs a real mesh; stay modeled
     return measure
 
 
@@ -345,9 +362,13 @@ def tune(spec: TuneSpec,
             b_elem=spec.b_elem)
         ranked = [_from_box(c, pid) for c in choices]
     else:
-        raise NotImplementedError(
-            "sharded tuning needs the sharded (L2) planner, which is not "
-            "ported yet")
+        choices = _autotune_sharded(
+            st, shape[0], spec.steps, hw_res, n_devices=spec.n_devices,
+            k_ici_grid=spec.k_ici_grid, codecs=spec.codecs,
+            b_elem=spec.b_elem)
+        if isinstance(spec.mesh, tuple):
+            choices = [c for c in choices if c.mesh == spec.mesh]
+        ranked = [_from_sharded(c, pid) for c in choices]
 
     if budget > 0 and ranked:
         measure = measure or _default_measure(hw_res, profile, device)

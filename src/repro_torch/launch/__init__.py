@@ -1,0 +1,2 @@
+"""Launch-time tooling of the port: elastic re-planning of sharded plans
+(:mod:`repro_torch.launch.elastic`)."""

@@ -40,7 +40,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.analytic import H100_SXM, Hardware
-from repro_torch.core.autotune import predicted_makespan
+from repro_torch.core.autotune import (
+    predicted_makespan, predicted_sharded_makespan)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.lower import (
     BucketRegistry, CompiledPlan, ExecStats, KernelCache, SlotPool, lower,
@@ -229,13 +230,50 @@ class StencilService:
 
     def run_sharded(self, plan, x: np.ndarray,
                     faults=None, retry=None) -> JobResult:
-        """Run a sharded or hierarchical plan through the service's warm
-        state — not ported yet: it needs the sharded simulator, which
-        comes with the sharded plans (ROADMAP A10).  Raises
-        :class:`NotImplementedError`."""
-        raise NotImplementedError(
-            "run_sharded needs ShardedSimExecutor, which is not ported "
-            "yet (ROADMAP A10: sharded and hierarchical plans)")
+        """Run a sharded or hierarchical plan on the lockstep simulator,
+        on the service's device, through the service's warm state.
+
+        The simulator shares the service ``kernel_cache``
+        (masked inner signatures stay warm across jobs) and — for
+        hierarchical plans — leases every nested chunk slot from the
+        service ``slot_pool``, releasing on retirement *and* on fault
+        paths: after a mid-flush failure
+        :meth:`~repro_torch.core.lower.SlotPool.assert_balanced` still
+        holds.  The plan is priced by
+        :func:`~repro_torch.core.autotune.predicted_sharded_makespan` on
+        the service's hardware model.  A terminal injected
+        fault degrades exactly like a queued job: ``status="failed"``
+        with the typed error attached, accounting from the plan."""
+        from repro_torch.core.executor import ShardedSimExecutor
+        from repro_torch.core.recovery import PlanExecutionError
+
+        ex = ShardedSimExecutor(slot_pool=self.slot_pool,
+                                kernel_cache=self.kernel_cache,
+                                device=self.device)
+        predicted = predicted_sharded_makespan(plan, self.hw)
+        injector = faults.injector() if faults is not None else None
+        with self._lock:
+            job_id = self._next_id
+            self._next_id += 1
+            self.jobs_submitted += 1
+        host: Optional[np.ndarray] = None
+        fault: Optional[BaseException] = None
+        try:
+            host, _ = ex.execute(plan, x, injector=injector, retry=retry)
+        except PlanExecutionError as e:
+            fault = e
+        exec_stats = ex.exec_stats or ExecStats(executor=ex.name)
+        self.exec_stats.merge(exec_stats)
+        with self._lock:
+            if fault is None:
+                self.jobs_completed += 1
+            else:
+                self.jobs_failed += 1
+        return JobResult(job_id=job_id, out=host, stats=plan.stats(),
+                         exec_stats=exec_stats, predicted_s=predicted,
+                         latency_s=exec_stats.wall_s,
+                         status="ok" if fault is None else "failed",
+                         fault=fault)
 
     # -- pricing / introspection --------------------------------------
 

@@ -365,11 +365,24 @@ def test_refinement_measures_real_runs_on_the_cpu():
 
 
 def test_sharded_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tune(TuneSpec("box2d1r", 2050, 64, mesh=4), hw=TPU_V5E)
-    with pytest.raises(NotImplementedError):
-        with pytest.warns(DeprecationWarning):
-            autotune_sharded(get_stencil("box2d1r"), 2050, 64, TPU_V5E)
+    """(The name predates the port of the sharded tuner.)  The sharded
+    mode ranks mesh x k_ici like the JAX package's, and the deprecated
+    alias warns and returns the same ranking."""
+    from repro.core.tune import TuneSpec as JaxTuneSpec
+    from repro.core.tune import tune as jax_tune
+
+    got = tune(TuneSpec("box2d1r", 2050, 64, mesh=4), hw=TPU_V5E)
+    want = jax_tune(JaxTuneSpec("box2d1r", 2050, 64, mesh=4),
+                    hw=jax_analytic.TPU_V5E)
+    assert [(r.config, r.modeled_s, r.extras) for r in got] \
+        == [(r.config, r.modeled_s, r.extras) for r in want]
+    assert got and {r.mode for r in got} == {"sharded"}
+    with pytest.warns(DeprecationWarning):
+        alias = autotune_sharded(get_stencil("box2d1r"), 2050, 64, TPU_V5E,
+                                 n_devices=4)
+    assert [(c.mesh, c.k_ici, c.time_s) for c in alias] \
+        == [(r.config["mesh"], r.config["k_ici"], r.modeled_s)
+            for r in got if r.config["codec"] == "identity"]
 
 
 def test_top_level_exports():

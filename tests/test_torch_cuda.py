@@ -385,3 +385,54 @@ def test_on_commit_sees_the_committed_rows_and_resume_is_bitwise(dev, impl,
         checkpoint=PlanCheckpointer(CheckpointManager(str(tmp_path)), plan))
     assert exe.exec_stats.resumes == 1
     np.testing.assert_array_equal(host, out)
+
+
+@pytest.mark.parametrize("name,mesh", [("box2d1r", (4, 2)),
+                                       ("gradient2d", (3, 3))])
+def test_sharded_simulator_on_the_card_equals_the_cpu(dev, name, mesh):
+    """The lockstep simulator on the card: within 1e-5 of its CPU run and
+    of the oracle, the same counters, and none of the three kernels
+    launched (the masked update is plain PyTorch)."""
+    from repro_torch.core.executor import ShardedSimExecutor
+    from repro_torch.core.shard import compile_sharded
+
+    x = RNG.standard_normal((96, 96)).astype(np.float32)
+    plan = compile_sharded(name, 96, 96, 8, 4, mesh)
+    for k in KERNELS.values():
+        k.launches = 0
+    ex = ShardedSimExecutor(device=dev)
+    got, stats = ex.execute(plan, x)
+    want, _ = ShardedSimExecutor(device="cpu").execute(plan, x)
+    assert all(k.launches == 0 for k in KERNELS.values())
+    assert np.abs(got - want).max() < 1e-5
+    ref = run_reference(torch.from_numpy(x).to(dev), get_stencil(name), 8)
+    assert _rel_err(torch.from_numpy(got), ref.cpu()) < 1e-5
+    assert stats == plan.stats()
+    es = ex.exec_stats
+    assert (es.shape_buckets, es.kernel_compiles, es.kernel_calls) \
+        == (1, 1, plan.n_ranks * plan.rounds)
+
+
+@pytest.mark.parametrize("codec", [None, "zrle"])
+def test_run_sharded_hierarchical_on_the_card_equals_the_cpu(dev, codec):
+    """A hierarchical plan through the service on the card: bitwise equal
+    to its flat plan on the card, within 1e-5 of the CPU run, the pool
+    balanced."""
+    from repro_torch.core.executor import ShardedSimExecutor
+    from repro_torch.core.hierarchy import compile_hierarchical
+    from repro_torch.core.shard import compile_sharded
+    from repro_torch.serve import StencilService
+
+    x = RNG.standard_normal((64, 64)).astype(np.float32)
+    plan = compile_hierarchical("box2d1r", 64, 64, 8, 2, (2, 2),
+                                inner_d=3, codec=codec)
+    svc = StencilService(device=dev)
+    res = svc.run_sharded(plan, x)
+    assert res.status == "ok" and res.exec_stats.kernel_impl \
+        == "shard_sim+hier"
+    svc.slot_pool.assert_balanced()
+    flat, _ = ShardedSimExecutor(device=dev).execute(
+        compile_sharded("box2d1r", 64, 64, 8, 2, (2, 2)), x)
+    np.testing.assert_array_equal(res.out, flat)
+    cpu = StencilService(device="cpu").run_sharded(plan, x)
+    assert np.abs(res.out - cpu.out).max() < 1e-5

@@ -223,8 +223,10 @@ def test_fault_hooks_not_ported_yet_and_executor_registry():
     assert tex.get_executor("dry_run").execute(plan)[1] == plan.stats()
     with pytest.raises(ValueError):
         tex.get_executor("dry_run", policy=DispatchPolicy())
-    with pytest.raises(KeyError):
+    with pytest.raises(NotImplementedError, match="A10c"):
         tex.get_executor("shard_map")
+    with pytest.raises(KeyError):
+        tex.get_executor("no_such_executor")
 
 
 def test_bucket_registry_lets_a_smaller_plan_reuse_signatures():

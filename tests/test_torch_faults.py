@@ -298,6 +298,32 @@ def test_seeded_fault_plans_equal_jax(seed):
     assert all((t.round, t.chunk) in keys for t in a.triggers)
 
 
+@pytest.mark.parametrize("seed", [0, 5, 23])
+def test_seeded_fault_plans_on_sharded_plans_equal_jax(seed):
+    """A sharded plan's sites are its ``(round, rank)`` pairs: the same
+    seed draws the same triggers as the JAX package, and the plan's
+    fingerprint is the JAX package's too (also of a hierarchical plan)."""
+    from repro.core.hierarchy import compile_hierarchical as jax_hier
+    from repro.core.shard import compile_sharded as jax_sharded
+    from repro_torch.core.hierarchy import compile_hierarchical
+    from repro_torch.core.shard import compile_sharded
+
+    plan = compile_sharded("star2d1r", 48, 32, 8, 2, (4, 2))
+    jplan = jax_sharded("star2d1r", 48, 32, 8, 2, (4, 2))
+    kw = dict(n_faults=5, kinds=(tfa.RANK_LOSS, KERNEL_FAULT),
+              op_classes=("ShardKernel", "HaloRecv", "*"))
+    a = FaultPlan.seeded(seed, plan, **kw)
+    j = jfa.FaultPlan.seeded(seed, jplan, **kw)
+    assert [tuple(vars(t).values()) for t in a.triggers] == \
+        [tuple(vars(t).values()) for t in j.triggers]
+    assert all(0 <= t.round < plan.rounds and 0 <= t.chunk < plan.n_ranks
+               for t in a.triggers)
+    assert plan_fingerprint(plan) == jre.plan_fingerprint(jplan)
+    hier = compile_hierarchical("star2d1r", 48, 32, 8, 2, (4, 2), inner_d=2)
+    assert plan_fingerprint(hier) == jre.plan_fingerprint(
+        jax_hier("star2d1r", 48, 32, 8, 2, (4, 2), inner_d=2))
+
+
 @pytest.mark.parametrize("engine", ENGINES)
 def test_fingerprints_and_resume_plans_equal_jax(engine):
     plan, jplan = _plans(engine, n=12, k_off=4)

@@ -19,7 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import analytic as jax_analytic
 from repro.core import faults as jfa
+from repro.core.autotune import \
+    predicted_sharded_makespan as jax_predicted_sharded_makespan
+from repro.core.hierarchy import \
+    compile_hierarchical as jax_compile_hierarchical
+from repro.core.shard import compile_sharded as jax_compile_sharded
 from repro.kernels.dispatch import DispatchPolicy as JaxPolicy
 from repro.serve import StencilJob as JaxJob
 from repro.serve import StencilService as JaxService
@@ -28,9 +34,12 @@ from repro_torch.core import faults as tfa
 from repro_torch.core.analytic import H100_SXM, TPU_V5E
 from repro_torch.core.autotune import predicted_makespan
 from repro_torch.core.executor import DoubleBufferedExecutor, EagerExecutor
+from repro_torch.core.hierarchy import compile_hierarchical
 from repro_torch.core.lower import BucketRegistry, ExecStats, KernelCache, SlotPool
 from repro_torch.core.oocore import compile_plan
 from repro_torch.core.recovery import PlanExecutionError
+from repro_torch.core.reference import run_reference
+from repro_torch.core.shard import compile_sharded
 from repro_torch.core.stencil import get_stencil
 from repro_torch.kernels.dispatch import DispatchPolicy
 from repro_torch.serve import (
@@ -240,6 +249,8 @@ def test_service_transient_faults_retried_transparently():
 
 
 def test_service_lifetime_stats_and_sharded_not_ported():
+    """(The name predates the port of ``run_sharded``.)  Lifetime
+    counters after a flush, a solo run and a sharded run."""
     svc = _service()
     svc.submit(_job((66, 66)), _x((66, 66)))
     svc.flush()
@@ -250,8 +261,81 @@ def test_service_lifetime_stats_and_sharded_not_ported():
     assert s["kernel_compiles"] > 0 and s["kernel_cache_hits"] > 0
     assert s["slot_pool"]["leases"] == 2 and s["slot_pool"]["in_use"] == 0
     assert svc.exec_stats.kernel_calls > 0
-    with pytest.raises(NotImplementedError, match="A10"):
-        svc.run_sharded(None, _x((66, 66)))
+    plan = compile_sharded("box2d1r", 48, 48, STEPS, 2, (2, 2))
+    res = svc.run_sharded(plan, _x((48, 48)))
+    assert res.status == "ok" and res.exec_stats.executor == "sharded_sim"
+    assert res.predicted_s == jax_predicted_sharded_makespan(
+        jax_compile_sharded("box2d1r", 48, 48, STEPS, 2, (2, 2)),
+        jax_analytic.TPU_V5E)
+    s = svc.service_stats()
+    assert s["jobs_submitted"] == s["jobs_completed"] == 3
+    assert svc.exec_stats.kernel_calls \
+        > res.exec_stats.kernel_calls == plan.n_ranks * plan.rounds
+
+
+def _hier_plans():
+    return (compile_hierarchical("star2d1r", 48, 48, STEPS, 2, (2, 2),
+                                 inner_engine="so2dr", inner_d=3),
+            jax_compile_hierarchical("star2d1r", 48, 48, STEPS, 2, (2, 2),
+                                     inner_engine="so2dr", inner_d=3))
+
+
+def test_hierarchical_job_runs_through_service_warm_state():
+    """A hierarchical job shares the service's slot pool and kernel
+    cache: inner chunk slots are leased from the pool (and all
+    returned), and a second run re-uses the masked kernel signature;
+    output and counters equal the JAX service's."""
+    svc = _service()
+    jsvc = JaxService()
+    plan, jplan = _hier_plans()
+    x = _x((48, 48))
+    res = svc.run_sharded(plan, x)
+    jres = jsvc.run_sharded(jplan, x)
+    assert res.status == "ok" and res.fault is None
+    ref = run_reference(torch.from_numpy(x), get_stencil("star2d1r"), STEPS)
+    assert np.abs(res.out - ref.numpy()).max() < TOL
+    assert _rel_err(res.out, jres.out) < TOL
+    assert res.predicted_s == jres.predicted_s > 0
+    svc.slot_pool.assert_balanced()
+    pool = svc.slot_pool.stats()
+    assert pool["leases"] == jsvc.slot_pool.stats()["leases"] > 0
+    assert pool["in_use"] == 0
+    compiles0 = svc.service_stats()["kernel_compiles"]
+    assert compiles0 == jsvc.service_stats()["kernel_compiles"] > 0
+    res2 = svc.run_sharded(plan, x)
+    assert res2.exec_stats.kernel_compiles == 0
+    assert res2.exec_stats.kernel_cache_hits > 0
+    assert svc.service_stats()["kernel_compiles"] == compiles0
+    svc.slot_pool.assert_balanced()
+
+
+def test_no_leaked_leases_when_hierarchical_job_raises_mid_flush():
+    """A terminal fault after round 0's nested programs have leased and
+    released their chunk slots leaves the pool balanced; the job fails
+    as in the JAX service and the service survives."""
+    svc = _service()
+    plan, jplan = _hier_plans()
+    trig = dict(round=1, chunk=None, op_class="ShardKernel",
+                kind=tfa.KERNEL_FAULT)
+    res = svc.run_sharded(plan, _x((48, 48)),
+                          faults=tfa.FaultPlan([tfa.FaultTrigger(**trig)]))
+    jsvc = JaxService()
+    jres = jsvc.run_sharded(jplan, _x((48, 48)),
+                            faults=jfa.FaultPlan([jfa.FaultTrigger(**trig)]))
+    assert res.status == jres.status == "failed" and res.out is None
+    assert isinstance(res.fault, PlanExecutionError)
+    assert str(res.fault) == str(jres.fault)
+    assert res.fault.last_committed_round \
+        == jres.fault.last_committed_round == -1
+    svc.slot_pool.assert_balanced()
+    pool = svc.slot_pool.stats()
+    # round 0's four inner programs each leased (and returned) a slot
+    assert pool["leases"] == jsvc.slot_pool.stats()["leases"] >= 4
+    assert pool["in_use"] == 0
+    assert svc.service_stats()["jobs_failed"] == 1
+    # the pool is still serviceable: the same job reruns clean
+    assert svc.run_sharded(plan, _x((48, 48))).status == "ok"
+    svc.slot_pool.assert_balanced()
 
 
 def test_default_device_is_cuda_and_the_service_raises_without_a_card():
