@@ -81,9 +81,29 @@ Phases, none of them caught — any failure exits non-zero:
 11. elastic: the flat (4, 2) plan of n=16 through ``run_elastic_sharded``
    with a rank loss at round 1, rank 3: the mesh shrinks to (3, 2), one
    re-plan, one extra round, within 1e-5 absolute of the fault-free
-   sharded run.  Records its wall beside the fault-free sharded run's.
+   sharded run.  Records its wall beside the fault-free sharded run's
+   and the fault-free output's sha256.
+12. shard_map: the multi-process backend (``ShardMapExecutor``, one
+   process per rank, ``torch.distributed`` halo exchanges).  (a) Phase
+   9's plan on a (4, 2) group of 8 rank processes sharing the card over
+   gloo with halos staged through page-locked host memory: within 1e-5
+   of the oracle (a sha256 equal to phase 9's carries its oracle result
+   over), bitwise equality with phases 9 and 4 recorded, 0 launches of
+   the three kernels; records the wall split (group start, domain in,
+   loads, rounds, halo exchange, masked update, stores, domain out) and
+   every rank's CUDA-event ms of its masked updates per rank-step
+   (time-sliced with the other seven ranks' contexts).  (b) phase 11's
+   rank loss through ``run_elastic_sharded`` with ``ShardMapExecutor``,
+   its (4, 2) rounds on (a)'s group: mesh (4, 2) -> (3, 2), 1 replan, 1
+   extra round, within 1e-5 of phase 11's fault-free output (held by
+   its sha256), the harness's (3, 2) group stopped, and no rank process
+   alive once (a)'s group is closed.  (c) a (1, 1) plan of n=16 on one
+   rank over NCCL: bitwise equal to ``ShardedSimExecutor`` on the same
+   plan.
 
-The line before the last is the card's name and power limit; before it,
+Every phase records the host's RAM peak (``MemTotal - MemAvailable``,
+sampled every 0.2 s).  The line before the last is the card's name and
+power limit; before it,
 a ``{"kernels": [...]}`` JSON line, and before that the launch shape of
 the kernels (threads and shared bytes per CTA, CTAs per SM from the
 occupancy API, grid, tile, load path) and the build's seconds.  The last
@@ -98,10 +118,12 @@ import functools
 import hashlib
 import itertools
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -114,7 +136,8 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core.calibrate import calibrate  # noqa: E402
 from repro_torch.core.distributed import masked_local_steps  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
-    DoubleBufferedExecutor, EagerExecutor, ShardedSimExecutor)
+    DoubleBufferedExecutor, EagerExecutor, ShardMapExecutor,
+    ShardedSimExecutor)
 from repro_torch.core.faults import (  # noqa: E402
     KERNEL_FAULT, RANK_LOSS, TRANSIENT_TRANSFER, FaultPlan, FaultTrigger,
     RetryPolicy)
@@ -124,6 +147,7 @@ from repro_torch.core.lower import (  # noqa: E402
     CompiledPlan, host_register, host_unregister)
 from repro_torch.core.oocore import compile_plan  # noqa: E402
 from repro_torch.core.plan import FusedKernel, fused_box_geometry  # noqa: E402
+from repro_torch.core.ranks import RankMesh  # noqa: E402
 from repro_torch.core.recovery import (  # noqa: E402
     PlanCheckpointer, PlanExecutionError, run_with_recovery)
 from repro_torch.core.reference import run_reference  # noqa: E402
@@ -176,11 +200,49 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/banded_fused_stencil.cu",
         replaces="src/repro/kernels/stencil_banded_mxu.py:110"),
 }
-RESULT = {"phases": {}}
+# every wait on a rank process of the shard_map phase (group start, one
+# dispatch, the join at close)
+RANK_TIMEOUT_S = 300.0
+RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class RamPeak(threading.Thread):
+    """Samples the host's used RAM (``MemTotal - MemAvailable`` of
+    ``/proc/meminfo``, all processes) every 0.2 s; :meth:`take` returns
+    the peak in GB since the last take."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.peak = 0
+        self.lock = threading.Lock()
+
+    @staticmethod
+    def used() -> int:
+        info = {}
+        with open("/proc/meminfo") as f:
+            for line in f:
+                key, val = line.split(":", 1)
+                info[key] = int(val.split()[0]) * 1024
+        return info["MemTotal"] - info["MemAvailable"]
+
+    def run(self) -> None:
+        while True:
+            used = self.used()
+            with self.lock:
+                self.peak = max(self.peak, used)
+            time.sleep(0.2)
+
+    def take(self) -> float:
+        with self.lock:
+            peak, self.peak = max(self.peak, self.used()), 0
+        return peak / 1e9
+
+
+RAM = RamPeak()
 
 
 def phase(name: str):
@@ -194,7 +256,9 @@ def phase(name: str):
             if exc_type is None:
                 s = time.perf_counter() - self.t0
                 RESULT["phases"][name] = s
-                log(f"== phase {name}: {s:.1f} s")
+                ram = RESULT["host_ram_peak_gb"][name] = RAM.take()
+                log(f"== phase {name}: {s:.1f} s, host RAM peak "
+                    f"{ram:.1f} GB")
     return _Timer()
 
 
@@ -1089,7 +1153,8 @@ def phase_elastic(size: int) -> None:
         ref, ref_rec, _ = run_sharded_sim(plan, x)
         rec = {"stencil": name, "shape": [size, size], "n": HIER_STEPS,
                "k_ici": SHARD_K_ICI, "mesh": list(SHARD_MESH),
-               "fault_free_sharded_wall_s": ref_rec["wall_s"]}
+               "fault_free_sharded_wall_s": ref_rec["wall_s"],
+               "fault_free_sha256": sha256(ref)}
         reset_counts()
         faults = FaultPlan([FaultTrigger(round=1, chunk=3, op_class="*",
                                          kind=RANK_LOSS)])
@@ -1116,6 +1181,176 @@ def phase_elastic(size: int) -> None:
             f"{rec['fault_free_sharded_wall_s']:.2f} s), mesh "
             f"{rep.mesh_history}, {rep.rounds_executed} rounds run, max "
             f"|err| vs fault-free {err}")
+
+
+def rank_processes() -> list:
+    """The shard_map backend's rank processes still alive."""
+    return [p for p in multiprocessing.active_children()
+            if p.name.startswith("repro_torch-rank")]
+
+
+def shard_map_run(plan, x: np.ndarray, transport: str, mesh=None):
+    """One ``ShardMapExecutor`` run, on ``mesh`` or else on a rank group
+    of its own (closed after); checked against the plan: the plan's
+    stats and calls, the transport of the rule, no kernel of
+    ``repro_torch.kernels`` launched.  A run on ``mesh`` counts the
+    mesh's start in its wall and split."""
+    reset_counts()
+    t = time.perf_counter()
+    with ShardMapExecutor(mesh=mesh, timeout=RANK_TIMEOUT_S) as ex:
+        out, stats = ex.execute(plan, x)
+    wall = time.perf_counter() - t
+    launched = counts()
+    es = ex.exec_stats
+    check(sum(launched.values()) == 0, "a kernel launched", launched)
+    check(stats == plan.stats()
+          and es.kernel_calls == plan.n_ranks * plan.rounds
+          and es.stage_count == len(plan.barriers), es.kernel_calls)
+    check(ex.transport == transport, ex.transport, transport)
+    check(out.shape == x.shape and bool(np.isfinite(out).all()),
+          "output shape or finiteness")
+    split = dict(es.op_wall_s)
+    if mesh is not None:
+        split["GroupStart"] = mesh.start_s
+        wall += mesh.start_s
+    else:
+        check(not rank_processes(), "rank processes outlive their executor")
+    steps = plan.rounds * plan.k_ici
+    ranks = [dict(rank=r["rank"], load_s=r["load_s"], rounds_s=r["rounds_s"],
+                  halo_s=r["halo_s"], update_s=r["update_s"],
+                  store_s=r["store_s"],
+                  update_ms_per_rank_step=r["update_ms"] / steps)
+             for r in ex.rank_stats]
+    rec = dict(wall_s=wall, transport=ex.transport, wall_split_s=split,
+               kernel_calls=es.kernel_calls, launches=launched, ranks=ranks)
+    return out, rec
+
+
+def phase_shard_map(size: int) -> None:
+    name = "box2d1r"
+    with phase("shard_map"):
+        torch.cuda.empty_cache()   # the ranks' own contexts need the card
+        x = main_domain(size)
+        rec = {"stencil": name, "shape": [size, size]}
+        # one (4, 2) group of 8 rank processes sharing the card, for (a)
+        # and for the elastic run's (4, 2) rounds in (b)
+        mesh = RankMesh(SHARD_MESH, timeout=RANK_TIMEOUT_S)
+        try:
+            rec["mesh4x2"] = shard_map_mesh4x2(size, x, mesh)
+            rec["elastic"] = shard_map_elastic(size, x, mesh)
+        finally:
+            mesh.close()
+        check(not rank_processes(), "rank processes outlive their mesh")
+        rec["elastic"]["rank_processes_alive_after"] = 0
+
+        # (c) one rank over NCCL, against the simulator
+        plan11 = compile_sharded(name, size, size, HIER_STEPS, SHARD_K_ICI,
+                                 (1, 1))
+        out, run = shard_map_run(plan11, x, "nccl")
+        sim_out, sim_rec, _ = run_sharded_sim(plan11, x)
+        check(np.array_equal(out, sim_out),
+              "NCCL (1, 1) differs from the simulator")
+        del out, sim_out
+        torch.cuda.empty_cache()
+        run.update(n=HIER_STEPS, k_ici=SHARD_K_ICI, mesh=[1, 1],
+                   bitwise_equal_sim=True, sim_wall_s=sim_rec["wall_s"])
+        rec["mesh1x1_nccl"] = run
+        RESULT["shard_map"] = rec
+        log(f"shard_map {name} mesh (1, 1) n={HIER_STEPS} over NCCL: "
+            f"{run['wall_s']:.2f} s, split "
+            + json.dumps({k: round(v, 3)
+                          for k, v in run["wall_split_s"].items()})
+            + f"; bitwise equal to the simulator "
+            f"({sim_rec['wall_s']:.2f} s)")
+
+
+def shard_map_mesh4x2(size: int, x: np.ndarray, mesh) -> dict:
+    """(a) the sharded phase's plan on ``mesh``'s 8 rank processes."""
+    name = "box2d1r"
+    plan = compile_sharded(name, size, size, SHARD_STEPS, SHARD_K_ICI,
+                           SHARD_MESH)
+    out, run = shard_map_run(plan, x, "gloo+host-staging", mesh)
+    digest = sha256(out)
+    run.update(n=SHARD_STEPS, k_ici=SHARD_K_ICI, mesh=list(SHARD_MESH),
+               rounds=plan.rounds, ranks_n=plan.n_ranks, sha256=digest,
+               bitwise_equal_sharded=digest == RESULT["sharded"]["sha256"],
+               bitwise_equal_main_path_box2d1r=(
+                   digest == RESULT["main_path_box2d1r"]["sha256"]))
+    if run["bitwise_equal_sharded"]:
+        run["oracle"] = dict(carried_over_from="sharded",
+                             **RESULT["sharded"]["oracle"]["sharded"])
+    else:
+        run["oracle"] = oracle_check(x, name, SHARD_STEPS,
+                                     {"shard_map": out})
+    del out
+    ms = [r["update_ms_per_rank_step"] for r in run["ranks"]]
+    run["update_ms_per_rank_step_min_max"] = [min(ms), max(ms)]
+    log(f"shard_map {name} mesh {SHARD_MESH} n={SHARD_STEPS} over "
+        f"{run['transport']}: {run['wall_s']:.2f} s (sharded simulator "
+        f"{RESULT['sharded']['wall_s']:.2f} s); split "
+        + json.dumps({k: round(v, 3) for k, v in run["wall_split_s"].items()})
+        + f"; masked update {min(ms):.3f}-{max(ms):.3f} ms per rank-step "
+        f"(CUDA events, 8 contexts time-sliced); bitwise equal to sharded: "
+        f"{run['bitwise_equal_sharded']}, to the B1 main path: "
+        f"{run['bitwise_equal_main_path_box2d1r']}")
+    return run
+
+
+def shard_map_elastic(size: int, x: np.ndarray, mesh) -> dict:
+    """(b) the elastic phase's rank loss through ``ShardMapExecutor``:
+    the (4, 2) rounds on ``mesh``, the (3, 2) rounds on a group the
+    harness starts and stops."""
+    name = "box2d1r"
+    plan = compile_sharded(name, size, size, HIER_STEPS, SHARD_K_ICI,
+                           SHARD_MESH)
+    faults = FaultPlan([FaultTrigger(round=1, chunk=3, op_class="*",
+                                     kind=RANK_LOSS)])
+    made = []
+
+    def factory(mesh_shape):
+        made.append(ShardMapExecutor(
+            mesh=mesh if mesh_shape == SHARD_MESH else None,
+            timeout=RANK_TIMEOUT_S))
+        return made[-1]
+
+    reset_counts()
+    t = time.perf_counter()
+    out, rep = run_elastic_sharded(plan, x, faults=faults,
+                                   executor_factory=factory)
+    wall = time.perf_counter() - t
+    launched = counts()
+    check(sum(launched.values()) == 0, "a kernel launched", launched)
+    check(rep.mesh_history == ((4, 2), (3, 2)) and rep.replans == 1
+          and rep.extra_rounds == 1, rep)
+    check(all(e._own is None for e in made),
+          "the harness left a rank group running")
+    digest = sha256(out)
+    if digest == RESULT["elastic"]["fault_free_sha256"]:
+        err = 0.0
+    else:
+        ref, _, _ = run_sharded_sim(plan, x)
+        err = float(np.abs(out - ref).max())
+        del ref
+        torch.cuda.empty_cache()
+    check(err <= FP32_TOL, "elastic shard_map vs fault-free", err)
+    del out
+    log(f"shard_map elastic {name} mesh {SHARD_MESH} n={HIER_STEPS}, rank 3 "
+        f"lost at round 1: {wall:.2f} s (simulator "
+        f"{RESULT['elastic']['wall_s']:.2f} s; the (4, 2) group started "
+        f"before), mesh {rep.mesh_history}, {rep.rounds_executed} rounds "
+        f"run, max |err| vs fault-free {err}")
+    return dict(
+        n=HIER_STEPS, k_ici=SHARD_K_ICI, wall_s=wall,
+        sim_elastic_wall_s=RESULT["elastic"]["wall_s"],
+        mesh4x2_group_started_before=True,
+        mesh_history=[list(m) for m in rep.mesh_history],
+        replans=rep.replans, extra_rounds=rep.extra_rounds,
+        rounds_executed=rep.rounds_executed,
+        faults_injected=rep.faults_injected, executors=len(made),
+        transports=sorted({e.transport for e in made if e.transport}),
+        max_abs_err_vs_fault_free=err,
+        bitwise_equal_fault_free=(
+            digest == RESULT["elastic"]["fault_free_sha256"]))
 
 
 def kernels_line() -> dict:
@@ -1152,6 +1387,7 @@ def main(argv=None) -> int:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "fp32 matmuls must run in full precision for the plain versions")
     t_all = time.perf_counter()
+    RAM.start()
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     phase_build()
@@ -1170,13 +1406,15 @@ def main(argv=None) -> int:
     phase_sharded(args.size)
     phase_hierarchical(args.size)
     phase_elastic(args.size)
+    phase_shard_map(args.size)
     RESULT["total_s"] = time.perf_counter() - t_all
     line = kernels_line()
     RESULT.update(line)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(RESULT, f, indent=1, default=str)
     log(f"total {RESULT['total_s']:.1f} s, of it the kernels' build "
-        f"{RESULT['build_s']:.1f} s")
+        f"{RESULT['build_s']:.1f} s; host RAM peak "
+        f"{max(RESULT['host_ram_peak_gb'].values()):.1f} GB")
     box4 = RESULT["box2d4r_times"]["kernels"]
     for impl, name, rec in (
             ("cuda", "box2d1r", RESULT["kernel_times"]["cuda"]),

@@ -2,13 +2,15 @@
 
 The planners, plan IR, lowering, executors, codecs, cost model,
 calibration and tuner, fault injection and checkpoint/resume, and the
-sharded and hierarchical plans (run in lockstep on one device) of
-``repro.core``, the stencil service of ``repro.serve`` and the elastic
-re-planning of ``repro.launch.elastic``, on PyTorch tensors, with the fused-stencil kernels written by hand for
-Hopper (``repro_torch.kernels``).  It imports neither JAX nor ``repro``.
-Importing it builds and loads no kernel: the CUDA library is built the
-first time a kernel launches.  Entry points run on the GPU unless the
-caller passes ``device="cpu"``.
+sharded and hierarchical plans (run in lockstep on one device, or on a
+mesh of rank processes over ``torch.distributed``) of ``repro.core``,
+the stencil service of ``repro.serve`` and the elastic re-planning of
+``repro.launch.elastic``, on PyTorch tensors, with the fused-stencil
+kernels written by hand for Hopper (``repro_torch.kernels``).  It
+imports neither JAX nor ``repro``.  Importing it builds and loads no
+kernel and starts no process: the CUDA library is built the first time
+a kernel launches, and rank processes start with their mesh.  Entry
+points run on the GPU unless the caller passes ``device="cpu"``.
 """
 from .core import (  # noqa: F401
     Box,

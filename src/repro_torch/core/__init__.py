@@ -8,8 +8,10 @@ planner (shard) compiles per-device op streams with halo-exchange ops,
 run in lockstep on one device by the sharded simulator (the masked
 update lives in distributed); when a shard's working set exceeds the
 device budget, the hierarchical compiler (hierarchy) nests an L1
-out-of-core streaming plan inside every shard.  Oracle (reference),
-stencil registry, chunk algebra (tiling), transfer codecs (compress).
+out-of-core streaming plan inside every shard.  The multi-process
+backend (distributed, ShardMapExecutor) runs the same plans on a mesh of
+rank processes (ranks) with ``torch.distributed`` halo exchanges.
+Oracle (reference), stencil registry, chunk algebra (tiling), transfer codecs (compress).
 The Sec. III/IV-C cost models (analytic/params/accounting), measured
 calibration (calibrate) and the tuner (autotune, tune) choose among the
 engines, configurations and kernels.  Fault injection (faults) and
@@ -24,13 +26,14 @@ from .compress import CODECS, Codec, compress_plan, get_codec, register_codec  #
 from .device import resolve_device  # noqa: F401
 from .faults import FAULT_KINDS, FaultInjector, FaultPlan, FaultTrigger, InjectedFault, RetryPolicy  # noqa: F401
 from .faults import KernelFault, RankLossFault, SlotExhaustedError, TransientTransferError  # noqa: F401
-from .executor import DoubleBufferedExecutor, DryRunExecutor, EagerExecutor, ShardedSimExecutor, get_executor  # noqa: F401
+from .executor import DoubleBufferedExecutor, DryRunExecutor, EagerExecutor, ShardMapExecutor, ShardedSimExecutor, get_executor  # noqa: F401
 from .hierarchy import HierarchicalPlan, compile_hierarchical  # noqa: F401
 from .lower import CompiledPlan, CompiledShardedPlan, ExecStats, KernelCache, lower, lower_sharded  # noqa: F401
 from .oocore import BoxTB, InCore, NaiveTB, ResReu, SO2DR, TransferStats, get_engine  # noqa: F401
 from .oocore import compile_box_plan, compile_plan, compile_plan_nd  # noqa: F401
 from .plan import Box, BufferRead, BufferWrite, Compress, D2H, Decompress, ExecutionPlan, FusedKernel, H2D, HostCommit  # noqa: F401
 from .plan import DeviceShard, HaloRecv, HaloSend, ShardKernel, ShardLoad, ShardStore, ShardedPlan  # noqa: F401
+from .ranks import RankFailure, RankMesh  # noqa: F401
 from .recovery import PlanCheckpointer, PlanExecutionError, plan_fingerprint, resume_plan, run_with_recovery  # noqa: F401
 from .reference import multi_step_band, multi_step_box, run_reference, step_band, step_band_nd, step_domain  # noqa: F401
 from .shard import compile_sharded, ghost_wedge_elements  # noqa: F401

@@ -1,8 +1,8 @@
 """Pluggable executors over :class:`repro_torch.core.plan.ExecutionPlan`
 and :class:`~repro_torch.core.plan.ShardedPlan` (the port of
-:mod:`repro.core.executor`, without its multi-process backend).
+:mod:`repro.core.executor`).
 
-Three interpreters of the same op schedule:
+Interpreters of the same op schedule:
 
 * :class:`EagerExecutor` — walks ops in plan order.
 * :class:`DoubleBufferedExecutor` — software-pipelined: chunk ``i+1``'s
@@ -17,10 +17,10 @@ Three interpreters of the same op schedule:
   per-rank streams to lockstep stage programs
   (:func:`repro_torch.core.lower.lower_sharded`) and runs them on one
   device, halos moving through a mailbox.
-
-The JAX package's ``shard_map`` backend waits for the multi-process
-backend: ``get_executor("shard_map")`` raises
-:class:`NotImplementedError`.
+* :class:`ShardMapExecutor` — runs a sharded plan on a mesh of rank
+  processes (:class:`~repro_torch.core.ranks.RankMesh`), one band per
+  process, halos crossing ``torch.distributed`` point to point (the JAX
+  package's ``shard_map`` backend).
 
 The device executors run plans through the lowering layer by default
 (:func:`repro_torch.core.lower.lower`); ``lowered=False`` falls back to the
@@ -34,6 +34,7 @@ stats always come from :meth:`ExecutionPlan.stats`.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -41,6 +42,7 @@ import torch
 
 from .compress import get_codec
 from .device import resolve_device
+from .distributed import check_sharded_domain, execute_sharded_plan
 from .lower import (
     ExecStats, KernelCache, lower, lower_sharded, to_device, validate_domain,
 )
@@ -48,11 +50,12 @@ from .plan import (
     BufferRead, BufferWrite, Compress, D2H, Decompress, ExecutionPlan,
     FusedKernel, H2D, HostCommit, TransferStats,
 )
+from .ranks import DEFAULT_TIMEOUT_S, RankMesh
 from .reference import multi_step_band, multi_step_box
 
 __all__ = [
     "EagerExecutor", "DoubleBufferedExecutor", "DryRunExecutor",
-    "ShardedSimExecutor", "get_executor", "EXECUTORS",
+    "ShardedSimExecutor", "ShardMapExecutor", "get_executor", "EXECUTORS",
 ]
 
 # fused-step implementation signature:
@@ -381,23 +384,137 @@ class ShardedSimExecutor:
         return host, stats
 
 
+class ShardMapExecutor:
+    """Multi-process backend: run a sharded plan through
+    :func:`repro_torch.core.distributed.execute_sharded_plan` on a mesh
+    of rank processes.
+
+    The plan carries the whole geometry (mesh shape, k_ici, stencil, n),
+    so ``execute(plan, x)`` needs no configuration beyond an optional
+    explicit :class:`~repro_torch.core.ranks.RankMesh` (which must match
+    the plan's shape, and which the caller closes).  By default the
+    executor starts its own ``plan.mesh_shape`` mesh on ``device`` (None
+    means ``cuda``) at the first ``execute``, reuses it for every later
+    plan of that shape, and replaces it when a plan of another shape
+    comes; :meth:`close` (or ``with``) stops it.  Stats are the
+    plan-derived accounting, same as every other executor.
+
+    Transport, by the rule of :mod:`repro_torch.core.ranks` (recorded in
+    :attr:`transport`): gloo on the CPU; NCCL when every rank has a card
+    of its own; gloo with halos staged through page-locked host memory
+    when ranks share a card (one H100 runs NCCL at mesh (1, 1) only).
+
+    Hierarchical and halo-compressed plans dispatch on their *outer
+    geometry*: each rank runs its rounds as fused masked updates, so the
+    nested chunking and the codec round trip are sim-only refinements —
+    each rank holds its full band (valid when its device fits it) and
+    halos cross raw.  Stats still report the plan's own two-level/wire
+    accounting.
+
+    ``exec_stats.op_wall_s`` splits the wall: ``GroupStart`` (spawn and
+    rendezvous, 0 when the mesh was reused), ``DomainIn`` / ``DomainOut``
+    (the parent's domain file), and the slowest rank's ``ShardLoad``,
+    ``Rounds``, ``HaloExchange``, ``MaskedUpdate`` and ``ShardStore``;
+    :attr:`rank_stats` holds every rank's own numbers, ``update_ms`` its
+    CUDA-event time of the masked updates."""
+
+    name = "shard_map"
+    supports_injection = False
+
+    def __init__(self, mesh: Optional[RankMesh] = None,
+                 row_axis: str = "data", col_axis: str = "model",
+                 device=None, timeout: float = DEFAULT_TIMEOUT_S):
+        self.mesh = mesh
+        self.row_axis = row_axis
+        self.col_axis = col_axis
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
+        self.timeout = timeout
+        self.exec_stats: Optional[ExecStats] = None
+        self.transport: Optional[str] = None
+        self.rank_stats: List[dict] = []
+        self._own = None
+
+    def _mesh_for(self, plan):
+        """The mesh to run ``plan`` on, and the seconds spent starting
+        it (0 when reused)."""
+        if self.mesh is not None:
+            return self.mesh, 0.0
+        shape = tuple(plan.mesh_shape)
+        own = self._own
+        if own is not None and (own.closed or own.sizes != shape):
+            own.close()
+            own = None
+        if own is None:
+            own = self._own = RankMesh(shape, (self.row_axis, self.col_axis),
+                                       device=self.device,
+                                       timeout=self.timeout)
+            return own, own.start_s
+        return own, 0.0
+
+    def execute(self, plan,
+                x: np.ndarray) -> Tuple[np.ndarray, TransferStats]:
+        t0 = time.perf_counter()
+        check_sharded_domain(plan, x)    # before any rank starts
+        mesh, start_s = self._mesh_for(plan)
+        out = execute_sharded_plan(plan, x, mesh=mesh,
+                                   row_axis=self.row_axis,
+                                   col_axis=self.col_axis)
+        run = mesh.last_run
+        ranks = run["ranks"]
+        if any(r["update_calls"] != plan.rounds for r in ranks):
+            raise RuntimeError(
+                f"ranks ran {[r['update_calls'] for r in ranks]} masked "
+                f"updates, the plan has {plan.rounds} rounds")
+
+        def slowest(key):
+            return max(r[key] for r in ranks)
+
+        self.transport = mesh.transport
+        self.rank_stats = ranks
+        # the backend runs each rank's rounds as one program, not per-op
+        # closures: no per-op counters or cache counters to report
+        self.exec_stats = ExecStats(
+            executor=self.name, kernel_impl="shard_map",
+            kernel_calls=plan.n_ranks * plan.rounds,
+            stage_count=len(plan.barriers),
+            op_wall_s={"GroupStart": start_s,
+                       "DomainIn": run["domain_in_s"],
+                       "ShardLoad": slowest("load_s"),
+                       "Rounds": slowest("rounds_s"),
+                       "HaloExchange": slowest("halo_s"),
+                       "MaskedUpdate": slowest("update_s"),
+                       "ShardStore": slowest("store_s"),
+                       "DomainOut": run["domain_out_s"]},
+            wall_s=time.perf_counter() - t0)
+        return out, plan.stats()
+
+    def close(self) -> None:
+        """Stop the mesh this executor started (an explicit mesh is the
+        caller's to close)."""
+        if self._own is not None:
+            self._own.close()
+            self._own = None
+
+    def __enter__(self) -> "ShardMapExecutor":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 EXECUTORS = {e.name: e for e in
              (EagerExecutor, DoubleBufferedExecutor, DryRunExecutor,
-              ShardedSimExecutor)}
+              ShardedSimExecutor, ShardMapExecutor)}
 
 
 def get_executor(name: str, fused_step: Optional[FusedStep] = None,
                  policy=None, device=None):
-    if name == "shard_map":
-        raise NotImplementedError(
-            "the shard_map executor is not ported yet: it waits for the "
-            "torch.distributed backend (ROADMAP A10c); run sharded plans "
-            "on one device with 'sharded_sim'")
     try:
         cls = EXECUTORS[name]
     except KeyError:
         raise KeyError(f"unknown executor {name!r}; known: {sorted(EXECUTORS)}")
-    if cls in (DryRunExecutor, ShardedSimExecutor):
+    if cls in (DryRunExecutor, ShardedSimExecutor, ShardMapExecutor):
         if fused_step is not None or policy is not None:
             raise ValueError(
                 f"executor {name!r} takes no fused_step/policy — it never "

@@ -23,9 +23,10 @@ Executors: :class:`repro_torch.core.executor.DryRunExecutor` costs a
 sharded plan with zero devices, and
 :class:`repro_torch.core.executor.ShardedSimExecutor` runs the per-rank
 streams through :func:`repro_torch.core.lower.lower_sharded` stage
-programs on one device.  The multi-process backend (the JAX package's
-``ShardMapExecutor``) is not ported yet.  Infeasible geometry raises
-with the JAX package's messages, word for word.
+programs on one device, and
+:class:`repro_torch.core.executor.ShardMapExecutor` runs them on a mesh
+of rank processes.  Infeasible geometry raises with the JAX package's
+messages, word for word.
 """
 from __future__ import annotations
 

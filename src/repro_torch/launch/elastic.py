@@ -12,7 +12,10 @@ compiles the remaining rounds on the surviving mesh, and only the
 faulted round is redone — **a preemption costs one round** of
 transfers, never the run.  The default executor is a
 :class:`~repro_torch.core.executor.ShardedSimExecutor` on ``device``
-(None means ``cuda``).
+(None means ``cuda``); the real multi-process backend is
+:class:`~repro_torch.core.executor.ShardMapExecutor`
+(``executor_factory=lambda mesh: ShardMapExecutor(...)``), whose rank
+processes the harness stops as soon as their mesh is left behind.
 
 The checkpoint-resharding half of the JAX module (``replan``,
 ``reshard_restored``) belongs to the LM stack and is not ported.
@@ -92,6 +95,12 @@ def replan_sharded(plan: ShardedPlan, from_round: int,
                            plan.k_ici, mesh_shape, itemsize=plan.itemsize)
 
 
+def _close(executor) -> None:
+    close = getattr(executor, "close", None)
+    if close is not None:
+        close()
+
+
 def run_elastic_sharded(plan: ShardedPlan, x: np.ndarray,
                         faults: Optional[FaultPlan] = None,
                         retry: Optional[RetryPolicy] = None,
@@ -114,8 +123,13 @@ def run_elastic_sharded(plan: ShardedPlan, x: np.ndarray,
     ``executor_factory(mesh_shape)`` builds the per-mesh executor
     (default: a fresh :class:`~repro_torch.core.executor.ShardedSimExecutor`
     on ``device``, None meaning ``cuda``).  An executor without
-    per-op injection (``supports_injection`` false) dispatches one fused
-    program, so injection is probed per rank before dispatch instead."""
+    per-op injection (``supports_injection`` false, e.g.
+    :class:`~repro_torch.core.executor.ShardMapExecutor`) dispatches one
+    fused program, so injection is probed per rank before dispatch
+    instead.  Every executor the factory builds is closed (when it has a
+    ``close``) once the harness is done with it — replaced after a rank
+    loss, or at the end of the run — so no rank process outlives its
+    mesh."""
     from repro_torch.core.executor import ShardedSimExecutor
 
     if executor_factory is None:
@@ -134,38 +148,43 @@ def run_elastic_sharded(plan: ShardedPlan, x: np.ndarray,
     mesh_history = [mesh]
     ex = executor_factory(mesh)
     rnd = replans = executed = 0
-    while rnd < rounds:
-        # one-round continuation plan on the current mesh
-        step = replan_sharded(plan, plan.rounds - 1, mesh_shape=mesh)
-        try:
-            executed += 1
-            if injector is None:
-                host, _ = ex.execute(step, host)
-            elif getattr(ex, "supports_injection", False):
-                host, _ = ex.execute(
-                    step, host, injector=injector.with_round_offset(rnd),
-                    retry=retry)
-            else:
-                # fused-program backend: probe every rank's site before
-                # dispatch (the program itself is all-or-nothing)
-                view = injector.with_round_offset(rnd)
-                for rank in range(step.n_ranks):
-                    view.before_op(0, rank, "ShardKernel")
-                host, _ = ex.execute(step, host)
-            rnd += 1
-        except (PlanExecutionError, InjectedFault) as e:
-            f = e.fault if isinstance(e, PlanExecutionError) else e
-            if not isinstance(f, RankLossFault) or replans >= max_replans:
-                raise PlanExecutionError(
-                    f"elastic sharded run failed at round {rnd}: {f}",
-                    fault=f, last_committed_round=rnd - 1,
-                    fingerprint=fp) from e
-            # the surviving mesh takes over from the last stored round;
-            # only the faulted round's transfers are repeated
-            mesh = shrink_mesh(mesh, f.rank)
-            mesh_history.append(mesh)
-            replans += 1
-            ex = executor_factory(mesh)
+    try:
+        while rnd < rounds:
+            # one-round continuation plan on the current mesh
+            step = replan_sharded(plan, plan.rounds - 1, mesh_shape=mesh)
+            try:
+                executed += 1
+                if injector is None:
+                    host, _ = ex.execute(step, host)
+                elif getattr(ex, "supports_injection", False):
+                    host, _ = ex.execute(
+                        step, host, injector=injector.with_round_offset(rnd),
+                        retry=retry)
+                else:
+                    # fused-program backend: probe every rank's site before
+                    # dispatch (the program itself is all-or-nothing)
+                    view = injector.with_round_offset(rnd)
+                    for rank in range(step.n_ranks):
+                        view.before_op(0, rank, "ShardKernel")
+                    host, _ = ex.execute(step, host)
+                rnd += 1
+            except (PlanExecutionError, InjectedFault) as e:
+                f = e.fault if isinstance(e, PlanExecutionError) else e
+                if not isinstance(f, RankLossFault) or replans >= max_replans:
+                    raise PlanExecutionError(
+                        f"elastic sharded run failed at round {rnd}: {f}",
+                        fault=f, last_committed_round=rnd - 1,
+                        fingerprint=fp) from e
+                # the surviving mesh takes over from the last stored round;
+                # only the faulted round's transfers are repeated
+                mesh = shrink_mesh(mesh, f.rank)
+                mesh_history.append(mesh)
+                replans += 1
+                old, ex = ex, executor_factory(mesh)
+                if ex is not old:
+                    _close(old)
+    finally:
+        _close(ex)
     return host, ElasticReport(
         rounds_total=rounds, rounds_executed=executed, replans=replans,
         mesh_history=tuple(mesh_history),

@@ -436,3 +436,84 @@ def test_run_sharded_hierarchical_on_the_card_equals_the_cpu(dev, codec):
     np.testing.assert_array_equal(res.out, flat)
     cpu = StencilService(device="cpu").run_sharded(plan, x)
     assert np.abs(res.out - cpu.out).max() < 1e-5
+
+
+# ------------------------------------------ the multi-process backend
+
+
+def _rank_processes():
+    import multiprocessing
+
+    return [p for p in multiprocessing.active_children()
+            if p.name.startswith("repro_torch-rank")]
+
+
+@pytest.mark.parametrize("name,mesh,transport", [
+    ("box2d1r", (1, 1), "nccl"),
+    ("gradient2d", (2, 2), "gloo+host-staging")])
+def test_shard_map_on_the_card_equals_the_simulator(dev, name, mesh,
+                                                    transport):
+    """Rank processes on the card: NCCL at world size 1 (the only NCCL
+    shape one card allows) and four ranks sharing the card over gloo
+    with host-staged halos, both bitwise equal to the simulator on the
+    card, none of the three kernels launched, no rank left alive."""
+    from repro_torch.core.executor import ShardMapExecutor, \
+        ShardedSimExecutor
+    from repro_torch.core.shard import compile_sharded
+
+    x = RNG.standard_normal((96, 96)).astype(np.float32)
+    plan = compile_sharded(name, 96, 96, 8, 4, mesh)
+    for k in KERNELS.values():
+        k.launches = 0
+    with ShardMapExecutor(device=dev, timeout=120) as ex:
+        got, stats = ex.execute(plan, x)
+        again, _ = ex.execute(plan, x)          # the group is reused
+    assert ex.transport == transport
+    assert all(k.launches == 0 for k in KERNELS.values())
+    want, _ = ShardedSimExecutor(device=dev).execute(plan, x)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(again, want)
+    assert stats == plan.stats()
+    assert ex.exec_stats.kernel_calls == plan.n_ranks * plan.rounds
+    assert all(r["update_ms"] > 0 for r in ex.rank_stats)
+    assert not _rank_processes()
+
+
+def test_shard_map_runs_a_hierarchical_plan_on_its_outer_geometry(dev):
+    """A hierarchical plan through the multi-process backend on the card:
+    each rank holds its full band, so the result is bitwise equal to the
+    simulator's hierarchical run and to the flat plan, with the plan's
+    two-level stats."""
+    from repro_torch.core.executor import ShardMapExecutor, \
+        ShardedSimExecutor
+    from repro_torch.core.hierarchy import compile_hierarchical
+
+    x = RNG.standard_normal((64, 64)).astype(np.float32)
+    plan = compile_hierarchical("box2d1r", 64, 64, 8, 2, (2, 2), inner_d=3,
+                                codec="zrle")
+    with ShardMapExecutor(device=dev, timeout=120) as ex:
+        got, stats = ex.execute(plan, x)
+    want, _ = ShardedSimExecutor(device=dev).execute(plan, x)
+    np.testing.assert_array_equal(got, want)
+    assert stats == plan.stats()
+    assert not _rank_processes()
+
+
+def test_a_rank_that_raises_on_the_card_fails_the_call_in_time(dev):
+    """One rank raises while its peers wait on its halo: the parent
+    raises with the rank's traceback well inside the deadline and no
+    rank process is left."""
+    import time
+
+    from repro_torch.core.distributed import run_distributed
+    from repro_torch.core.ranks import RankFailure, RankMesh
+
+    x = RNG.standard_normal((64, 64)).astype(np.float32)
+    mesh = RankMesh((2, 2), device=dev, timeout=120)
+    t0 = time.monotonic()
+    with pytest.raises(RankFailure, match="fault drill: rank 2"):
+        mesh.run(x, "box2d1r", 2, 2, "data", "model", fail_rank=2)
+    assert time.monotonic() - t0 < 60
+    assert mesh.closed and not _rank_processes()
+    with pytest.raises(RuntimeError, match="closed"):
+        run_distributed(x, "box2d1r", 4, 2, mesh)

@@ -223,8 +223,10 @@ def test_fault_hooks_not_ported_yet_and_executor_registry():
     assert tex.get_executor("dry_run").execute(plan)[1] == plan.stats()
     with pytest.raises(ValueError):
         tex.get_executor("dry_run", policy=DispatchPolicy())
-    with pytest.raises(NotImplementedError, match="A10c"):
-        tex.get_executor("shard_map")
+    assert type(tex.get_executor("shard_map", device="cpu")) \
+        is tex.ShardMapExecutor
+    with pytest.raises(ValueError, match="fused_step/policy"):
+        tex.get_executor("shard_map", fused_step=lambda *a: None)
     with pytest.raises(KeyError):
         tex.get_executor("no_such_executor")
 

@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.serve.scheduler",
             "repro_torch.serve.service", "repro_torch.core.shard",
             "repro_torch.core.hierarchy", "repro_torch.core.distributed",
-            "repro_torch.launch.elastic"} <= set(names)
+            "repro_torch.core.ranks", "repro_torch.launch.elastic"} \
+        <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -49,6 +50,9 @@ def test_every_module_imports_without_jax_or_repro():
         "assert not bad, bad\n"
         "import repro_torch.kernels._build as b\n"
         "assert b._lib is None, 'importing the port loaded the kernels'\n"
+        "import multiprocessing, threading\n"
+        "assert not multiprocessing.active_children(), 'a process started'\n"
+        "assert threading.active_count() == 1, 'a thread started'\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -308,9 +308,10 @@ def test_lowered_streams_share_one_kernel_signature():
 def test_executor_registry_and_rejections():
     assert type(tex.get_executor("sharded_sim", device="cpu")) \
         is tex.ShardedSimExecutor
-    with pytest.raises(NotImplementedError, match="A10c"):
-        tex.get_executor("shard_map")
-    for name in ("sharded_sim", "dry_run"):
+    assert type(tex.get_executor("shard_map", device="cpu")) \
+        is tex.ShardMapExecutor
+    # configuration these executors would silently drop is rejected
+    for name in ("sharded_sim", "shard_map", "dry_run"):
         with pytest.raises(ValueError, match="fused_step/policy"):
             tex.get_executor(name, fused_step=lambda *a: None)
     plan = tsh.compile_sharded("box2d1r", 48, 48, 2, 1, (1, 1))
