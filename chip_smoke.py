@@ -100,6 +100,21 @@ Phases, none of them caught — any failure exits non-zero:
    alive once (a)'s group is closed.  (c) a (1, 1) plan of n=16 on one
    rank over NCCL: bitwise equal to ``ShardedSimExecutor`` on the same
    plan.
+13. lm_serve: the LM stack's serve path (``build_model``, ``init_params``
+   from a seeded generator on the card, ``greedy_generate``) at full
+   published width: qwen3-0.6b and mamba2-130m whole, mixtral-8x7b with
+   ``n_layers`` cut to 2 (the whole model is 187 GB in fp32).  4
+   requests of 2048 prompt tokens each, 32 new tokens greedily.  Gates
+   (the JAX package's own, tests/test_models.py:55-73): prefill's logits
+   within 1e-3 of ``forward``'s last position; the first decode step
+   within 5e-2, relative to the max |logit|, of ``forward`` on the
+   extended prompt (mixtral at capacity factor E/K, where no assignment
+   drops, as the JAX smoke configs hold it: at its own 1.25 a 4-token
+   decode step has capacity 1 and drops what ``forward`` keeps; that
+   error is recorded); every logit finite, every token in [0, vocab).
+   Records prefill and decode-step ms (CUDA events), tokens/s, the
+   device memory peak and each decode step's weight-byte bound.  No
+   kernel of ``repro_torch.kernels`` launches (the LM stack has none).
 
 Every phase records the host's RAM peak (``MemTotal - MemAvailable``,
 sampled every 0.2 s).  The line before the last is the card's name and
@@ -114,6 +129,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import hashlib
 import itertools
@@ -133,6 +149,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.calibrate import calibrate  # noqa: E402
 from repro_torch.core.distributed import masked_local_steps  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
@@ -166,7 +183,11 @@ from repro_torch.kernels.stencil_multistep import (  # noqa: E402
 from repro_torch.kernels.stencil_multistep_db import (  # noqa: E402
     db_launch_shape, fused_stencil_band_db, fused_stencil_band_db_plain)
 from repro_torch.launch.elastic import run_elastic_sharded  # noqa: E402
-from repro_torch.serve import StencilJob, StencilService  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.moe import moe_capacity  # noqa: E402
+from repro_torch.models.transformer import tree_map  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    StencilJob, StencilService, greedy_generate)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -203,6 +224,12 @@ KERNELS = {
 # every wait on a rank process of the shard_map phase (group start, one
 # dispatch, the join at close)
 RANK_TIMEOUT_S = 300.0
+# the lm_serve phase: (arch, n_layers cut to, or None for the whole model)
+LM_MODELS = (("qwen3-0.6b", None), ("mamba2-130m", None),
+             ("mixtral-8x7b", 2))
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+LM_SEED = 20251017
+LM_PREFILL_TOL, LM_DECODE_TOL = 1e-3, 5e-2   # tests/test_models.py:61, :73
 RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
 
@@ -1353,6 +1380,184 @@ def shard_map_elastic(size: int, x: np.ndarray, mesh) -> dict:
             digest == RESULT["elastic"]["fault_free_sha256"]))
 
 
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def device_busy_ms(fn):
+    """Device-busy ms of one call of ``fn``: the union of its kernels'
+    (and copies') spans on the card, from a ``torch.profiler`` trace
+    (None when the trace holds no device event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo = busy + hi - lo, s
+        hi = max(hi, e)
+    return (busy + hi - lo) / 1e3
+
+
+def lm_decode_gate(model, params, tokens: torch.Tensor) -> tuple:
+    """(prefill's logits vs forward's last position, absolute; the first
+    decode step vs forward on the extended prompt, relative to its max
+    |logit|), as tests/test_models.py:55-73; every logit finite."""
+    B, S = tokens.shape
+    cache = model.init_cache(B, S + LM_NEW)
+    lg_pre, cache = model.prefill(params, {"tokens": tokens}, cache)
+    full, _ = model.forward(params, {"tokens": tokens})
+    check(bool(torch.isfinite(full).all()), "forward logits not finite")
+    e_pre = float((lg_pre[:, 0].float() - full[:, -1].float()).abs().max())
+    del full
+    nxt = lg_pre[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    lg_dec, _ = model.decode_step(params, nxt, S, cache)
+    del cache
+    full, _ = model.forward(params, {"tokens": torch.cat([tokens, nxt], 1)})
+    check(bool(torch.isfinite(full).all()), "forward logits not finite")
+    ref = full[:, S].float()
+    del full
+    check(bool(torch.isfinite(lg_pre).all() and torch.isfinite(lg_dec).all()),
+          "prefill or decode logits not finite")
+    e_dec = float((lg_dec[:, 0].float() - ref).abs().max()
+                  / (ref.abs().max() + 1e-6))
+    return e_pre, e_dec
+
+
+def lm_serve_one(arch: str, n_layers) -> dict:
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = _leaves(params)
+    weight_bytes = sum(w.numel() * w.element_size() for w in leaves)
+    tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).cuda()
+    B, S = tokens.shape
+    rec = dict(arch=arch, n_layers=cfg.n_layers,
+               n_layers_published=get_config(arch).n_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab, batch=B, prompt=S,
+               new_tokens=LM_NEW, max_len=S + LM_NEW,
+               params=sum(w.numel() for w in leaves),
+               weight_bytes=weight_bytes, init_s=init_s)
+
+    e_pre, e_dec = lm_decode_gate(model, params, tokens)
+    rec.update(prefill_vs_forward_abs=e_pre, decode_vs_forward_rel=e_dec)
+    if cfg.family == "moe":
+        # the gate at capacity factor E/K (every token fits, nothing
+        # drops); the model's own factor's decode error is recorded
+        ample = dataclasses.replace(cfg, capacity_factor=max(
+            cfg.capacity_factor, cfg.n_experts / cfg.top_k))
+        rec["decode_vs_forward_rel_own_capacity"] = e_dec
+        rec["capacity_own"] = dict(
+            prefill=moe_capacity(cfg, B * S), decode=moe_capacity(cfg, B))
+        e_pre_ample, e_dec = lm_decode_gate(build_model(ample), params,
+                                            tokens)
+        rec.update(capacity_factor_gate=ample.capacity_factor,
+                   prefill_vs_forward_abs_ample=e_pre_ample,
+                   decode_vs_forward_rel=e_dec)
+        check(e_pre_ample < LM_PREFILL_TOL, arch, "prefill vs forward",
+              e_pre_ample)
+    check(e_pre < LM_PREFILL_TOL, arch, "prefill vs forward", e_pre)
+    check(e_dec < LM_DECODE_TOL, arch, "decode vs forward", e_dec)
+
+    # CUDA-event times of one prefill and of decode steps (warm: the
+    # gates above ran both)
+    batch = {"tokens": tokens}
+    cache0 = model.init_cache(B, S + LM_NEW)
+    out = {}
+    rec["prefill_ms"] = cuda_ms(
+        lambda: out.update(c=model.prefill(params, batch, cache0)), 2)
+    logits, cache = out.pop("c")
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    state = {"cache": cache, "pos": S}
+
+    def one_step():
+        _, state["cache"] = model.decode_step(params, tok, state["pos"],
+                                              state["cache"])
+        state["pos"] += 1
+
+    rec["decode_ms_per_step"] = cuda_ms(one_step, 8)
+    busy = device_busy_ms(one_step)
+    rec["decode_device_busy_ms"] = busy
+    rec["decode_device_busy_share"] = (
+        None if busy is None else busy / rec["decode_ms_per_step"])
+    del cache0, cache, state, logits
+
+    # the serve path itself: prefill + 31 decode steps, host clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = greedy_generate(model, params, batch, LM_NEW, S + LM_NEW)
+    torch.cuda.synchronize()
+    rec["generate_s"] = time.perf_counter() - t0
+    check(tuple(toks.shape) == (B, LM_NEW) and toks.dtype == torch.int32,
+          tuple(toks.shape), toks.dtype)
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token out of range")
+    rec["tokens_per_s"] = B * LM_NEW / rec["generate_s"]
+    rec["decode_tokens_per_s"] = B / (rec["decode_ms_per_step"] / 1e3)
+    rec["first_tokens"] = toks[:, :4].tolist()
+    # data-sheet rate: every weight read once per decode step, as stored
+    rec["decode_weight_bound_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
+    rec["decode_over_bound"] = (rec["decode_ms_per_step"]
+                                / rec["decode_weight_bound_ms"])
+    rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, leaves, toks
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lm_serve() -> None:
+    with phase("lm_serve"):
+        rec = {"bf16_reduced_precision_reduction":
+               torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
+        reset_counts()
+        for arch, n_layers in LM_MODELS:
+            r = rec[arch] = lm_serve_one(arch, n_layers)
+            cut = ("" if r["n_layers"] == r["n_layers_published"] else
+                   f", n_layers cut to {r['n_layers']} of "
+                   f"{r['n_layers_published']}")
+            gate = ("" if "capacity_factor_gate" not in r else
+                    f" at capacity factor {r['capacity_factor_gate']} "
+                    f"(own {get_config(arch).capacity_factor}: "
+                    f"{r['decode_vs_forward_rel_own_capacity']:.3e}, decode "
+                    f"capacity {r['capacity_own']['decode']})")
+            log(f"lm_serve {arch} (full width{cut}; {r['params'] / 1e6:.1f} M "
+                f"params, {r['weight_bytes'] / 1e9:.2f} GB fp32): {r['batch']} "
+                f"x {r['prompt']} prompt tokens, {r['new_tokens']} new; "
+                f"prefill {r['prefill_ms']:.2f} ms, decode "
+                f"{r['decode_ms_per_step']:.2f} ms/step (CUDA events; "
+                f"weight-byte bound {r['decode_weight_bound_ms']:.3f} ms at "
+                f"the data-sheet 3.35 TB/s, {r['decode_over_bound']:.1f}x; "
+                f"device busy {r['decode_device_busy_ms']} ms of a step by "
+                f"the profiler); "
+                f"greedy_generate {r['generate_s']:.2f} s, "
+                f"{r['tokens_per_s']:.1f} tokens/s; device memory peak "
+                f"{r['max_memory_allocated_gb']:.2f} GB; prefill vs forward "
+                f"{r['prefill_vs_forward_abs']:.3e} abs, decode vs forward "
+                f"{r['decode_vs_forward_rel']:.3e} rel{gate}")
+        launched = counts()
+        check(sum(launched.values()) == 0, "a kernel launched", launched)
+        RESULT["lm_serve"] = rec
+
+
 def kernels_line() -> dict:
     out = []
     for impl, key in (("cuda", "main_path_box2d1r"),
@@ -1407,6 +1612,7 @@ def main(argv=None) -> int:
     phase_hierarchical(args.size)
     phase_elastic(args.size)
     phase_shard_map(args.size)
+    phase_lm_serve()
     RESULT["total_s"] = time.perf_counter() - t_all
     line = kernels_line()
     RESULT.update(line)

@@ -6,7 +6,9 @@ sharded and hierarchical plans (run in lockstep on one device, or on a
 mesh of rank processes over ``torch.distributed``) of ``repro.core``,
 the stencil service of ``repro.serve`` and the elastic re-planning of
 ``repro.launch.elastic``, on PyTorch tensors, with the fused-stencil
-kernels written by hand for Hopper (``repro_torch.kernels``).  It
+kernels written by hand for Hopper (``repro_torch.kernels``); and the
+LM stack's serve path (``repro_torch.configs``, ``repro_torch.models``,
+``repro_torch.serve.decode``) for all six model families.  It
 imports neither JAX nor ``repro``.  Importing it builds and loads no
 kernel and starts no process: the CUDA library is built the first time
 a kernel launches, and rank processes start with their mesh.  Entry

@@ -1,0 +1,17 @@
+"""minitron-4b — pruned nemotron [arXiv:2407.14679; hf].
+
+32L d_model=3072 24H (GQA kv=8) d_ff=9216 vocab=256000.
+"""
+from .base import ArchConfig
+
+FULL = ArchConfig(
+    name="minitron-4b", family="dense",
+    n_layers=32, d_model=3072, n_heads=24, n_kv_heads=8, d_head=128,
+    d_ff=9216, vocab=256000,
+)
+
+SMOKE = ArchConfig(
+    name="minitron-4b-smoke", family="dense",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+    d_ff=128, vocab=256,
+)

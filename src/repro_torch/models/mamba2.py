@@ -1,0 +1,207 @@
+"""Mamba-2 (SSD — state-space duality) blocks (the port of
+``repro.models.mamba2``).
+
+The SSD chunked scan is the direct structural analogue of the paper's
+SO2DR: the sequence is split into chunks, an O(N·P) carried state plays
+the role of the region-sharing buffer at chunk boundaries, and the
+intra-chunk quadratic part is uninterrupted on-chip work — temporal
+blocking along the sequence axis.
+
+Shapes: x (B, S, H, P) heads×head_dim, B/C (B, S, N) state projections
+(single group), dt (B, S, H), A (H,) negative decay.  The scan runs in
+fp32; its four-operand contractions are split into pairwise ones (the
+result, not the contraction order, is the spec).  ``softplus`` is
+``logaddexp(x, 0)``, jax.nn.softplus exactly (``F.softplus`` would return
+``x`` above its threshold of 20).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..core.device import resolve_device
+from .layers import dense, dense_init, randn, rmsnorm, rmsnorm_init
+
+__all__ = ["mamba_init", "mamba_apply", "mamba_init_state", "mamba_decode_step"]
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a: (..., Q) -> (..., Q, Q) with out[i, j] = sum_{k=j+1..i} a_k
+    for i >= j, -inf otherwise (log-space decay matrix)."""
+    Q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    i = torch.arange(Q, device=a.device)
+    mask = i[:, None] >= i[None, :]
+    return diff.masked_fill(~mask, -torch.inf)
+
+
+def mamba_init(gen, cfg: ArchConfig, device=None):
+    dev = resolve_device(device)
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    w = cfg.conv_width
+    conv_dim = di + 2 * N
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "ln": rmsnorm_init(cfg.d_model, dev),
+        "in_proj": dense_init(gen, cfg.d_model, 2 * di + 2 * N + H, device=dev),
+        "conv_w": randn(gen, (w, conv_dim), dev) * (w ** -0.5),
+        "conv_b": torch.zeros((conv_dim,), **f32),
+        "dt_bias": torch.zeros((H,), **f32),
+        "A_log": torch.zeros((H,), **f32),  # A = -exp(A_log) = -1
+        "D": torch.ones((H,), **f32),
+        "gn": rmsnorm_init(di, dev),
+        "out_proj": dense_init(gen, di, cfg.d_model, device=dev),
+    }
+
+
+def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
+    di, N = cfg.d_inner, cfg.ssm_state
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di: 2 * di + 2 * N]
+    dt = zxbcdt[..., 2 * di + 2 * N:]
+    return z, xBC, dt
+
+
+def _causal_conv(p, xBC: torch.Tensor, w: int) -> torch.Tensor:
+    """Depthwise causal conv1d along S.  xBC: (B, S, C)."""
+    pad = F.pad(xBC, (0, 0, w - 1, 0))
+    out = sum(
+        pad[:, i: i + xBC.shape[1]] * p["conv_w"][i].to(xBC.dtype)
+        for i in range(w)
+    )
+    return F.silu(out + p["conv_b"].to(xBC.dtype))
+
+
+def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """SSD chunked scan.
+
+    x: (B,S,H,P) raw inputs (dt applied here); dt: (B,S,H) softplus'd;
+    A: (H,) negative; Bm/Cm: (B,S,N).
+    Returns (y: (B,S,H,P) in x's dtype, final_state: (B,H,P,N) fp32).
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+
+    f32 = torch.float32
+    xdt = (x * dt[..., None]).to(f32).reshape(Bsz, nc, Q, H, P)
+    dA = (dt * A).to(f32).reshape(Bsz, nc, Q, H).movedim(3, 2)  # (B,nc,H,Q)
+    Bc = Bm.to(f32).reshape(Bsz, nc, Q, N)
+    Cc = Cm.to(f32).reshape(Bsz, nc, Q, N)
+
+    L = torch.exp(_segsum(dA))                               # (B,nc,H,Q,Q)
+    # intra-chunk (the "on-chip" quadratic part)
+    CB = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", CB[:, :, None] * L, xdt)
+
+    dA_cum = torch.cumsum(dA, dim=-1)                        # (B,nc,H,Q)
+    decay_states = torch.exp(dA_cum[..., -1:] - dA_cum)      # (B,nc,H,Q)
+    xdt_dec = xdt * decay_states.movedim(2, 3)[..., None]    # (B,nc,Q,H,P)
+    chunk_states = torch.einsum("bckn,bckhp->bchpn", Bc, xdt_dec)
+
+    # inter-chunk recurrence (the "region-sharing" state hand-off)
+    chunk_decay = torch.exp(dA_cum[..., -1])                 # (B,nc,H)
+    h = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    prev = []
+    for c in range(nc):
+        prev.append(h)  # the state *entering* chunk c
+        h = h * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    prev = torch.stack(prev, dim=1)                          # (B,nc,H,P,N)
+
+    out_decay = torch.exp(dA_cum)                            # (B,nc,H,Q)
+    y_off = (torch.einsum("bcqn,bchpn->bcqhp", Cc, prev)
+             * out_decay.movedim(2, 3)[..., None])
+
+    y = (y_diag + y_off).reshape(Bsz, nc * Q, H, P)[:, :S]
+    return y.to(x.dtype), h
+
+
+def mamba_apply(
+    p,
+    cfg: ArchConfig,
+    u: torch.Tensor,                       # (B, S, D)
+    init_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Full-sequence Mamba-2 block (training / prefill)."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    B, S, D = u.shape
+    res = u
+    x = rmsnorm(p["ln"], u)
+    z, xBC_raw, dt = _split_proj(cfg, dense(p["in_proj"], x))
+    xBC = _causal_conv(p, xBC_raw, cfg.conv_width)
+    xs = xBC[..., :di].reshape(B, S, H, P)
+    Bm = xBC[..., di: di + N]
+    Cm = xBC[..., di + N:]
+    dt = _softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, hT = _ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
+    y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, S, di)
+    y = rmsnorm(p["gn"], y * F.silu(z))
+    out = res + dense(p["out_proj"], y)
+    if return_state:
+        # conv history for decode continuity: last (w-1) raw conv inputs
+        w = cfg.conv_width
+        tail = xBC_raw[:, -(w - 1):].to(torch.bfloat16)
+        pad = (w - 1) - tail.shape[1]
+        if pad > 0:
+            tail = F.pad(tail, (0, 0, pad, 0))
+        return out, {"ssm": hT, "conv": tail}
+    return out, None
+
+
+def mamba_init_state(cfg: ArchConfig, batch: int, device=None):
+    dev = resolve_device(device)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * N
+    return {
+        "ssm": torch.zeros((batch, H, P, N), dtype=torch.float32, device=dev),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim),
+                            dtype=torch.bfloat16, device=dev),
+    }
+
+
+def mamba_decode_step(p, cfg: ArchConfig, u: torch.Tensor, state):
+    """One-token recurrent step.  u: (B, 1, D) -> (B, 1, D), new state."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    B = u.shape[0]
+    res = u
+    x = rmsnorm(p["ln"], u)
+    z, xBC, dt = _split_proj(cfg, dense(p["in_proj"], x))  # (B,1,*)
+    # conv cache: last (w-1) inputs
+    hist = torch.cat([state["conv"], xBC.to(state["conv"].dtype)], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", hist.float(), p["conv_w"])
+    xBC1 = F.silu(conv_out + p["conv_b"]).to(u.dtype)[:, None]  # (B,1,C)
+    new_conv = hist[:, 1:]
+
+    xs = xBC1[..., :di].reshape(B, H, P)
+    Bm = xBC1[..., di: di + N].reshape(B, N).float()
+    Cm = xBC1[..., di + N:].reshape(B, N).float()
+    dtv = _softplus(dt.float().reshape(B, H) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dtv * A)                                   # (B,H)
+    xdt = xs.float() * dtv[..., None]                         # (B,H,P)
+    h = state["ssm"] * dA[..., None, None] + xdt[..., None] * Bm[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", h, Cm).to(u.dtype)
+    y = y + xs * p["D"].to(y.dtype)[None, :, None]
+    y = y.reshape(B, 1, di)
+    y = rmsnorm(p["gn"], y * F.silu(z))
+    out = res + dense(p["out_proj"], y)
+    return out, {"ssm": h, "conv": new_conv}

@@ -1,0 +1,294 @@
+"""Dense decoder transformer family (minitron / phi3 / h2o-danube / qwen3)
+plus the attention/FFN block primitives reused by the MoE, hybrid, VLM and
+enc-dec families (the port of ``repro.models.transformer``).
+
+Stacked layer params keep their leading ``(n_layers, ...)`` axis, and a
+Python loop over the layers (:func:`scan_layers`) takes the place of
+``jax.lax.scan``: each layer gets views ``t[i]`` of the stacked tensors.
+Caches keep the same stacked layout.
+
+Caches are values, as in JAX: ``prefill`` and ``decode_step`` return a
+new cache and never write a tensor of the cache they were given, so a
+caller may keep and reuse it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.device import resolve_device
+from .layers import (
+    chunked_attention, decode_attention, dense, dense_init, embed_init,
+    gelu_mlp, gelu_mlp_init, layernorm, layernorm_init, rmsnorm, rmsnorm_init,
+    rope, swiglu, swiglu_init,
+)
+
+__all__ = [
+    "attn_init", "attn_apply", "block_init", "block_apply",
+    "norm_init", "norm_apply", "mlp_init", "mlp_apply",
+    "stack_init", "dense_params_init", "dense_forward", "dense_init_cache",
+    "dense_decode_step", "dense_prefill", "kv_cache_init", "positions_at",
+    "tree_map", "tree_index", "tree_stack", "scan_layers",
+]
+
+
+# ------------------------------------------------------------- param trees
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (all of one structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_index(tree, i: int):
+    """Layer ``i`` of a stacked tree: views, not copies."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def tree_stack(trees):
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+def _n_stacked(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def scan_layers(body, x, params, cache=None):
+    """``x`` through ``body(x, layer_params, layer_cache)`` for every layer
+    of the stacked ``params``; returns ``(x, stacked new caches)``, the
+    second None when ``cache`` is None."""
+    new = []
+    for i in range(_n_stacked(params)):
+        x, c = body(x, tree_index(params, i),
+                    None if cache is None else tree_index(cache, i))
+        new.append(c)
+    return x, (None if cache is None else tree_stack(new))
+
+
+def positions_at(pos, device) -> torch.Tensor:
+    """The (1,) position tensor of one decode step at ``pos``."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device).reshape(-1)
+    return torch.full((1,), pos, device=device)   # no host-to-device copy
+
+
+# ---------------------------------------------------------------- primitives
+
+def norm_init(cfg: ArchConfig, d: Optional[int] = None, device=None):
+    d = d or cfg.d_model
+    return (rmsnorm_init(d, device) if cfg.norm == "rmsnorm"
+            else layernorm_init(d, device))
+
+
+def norm_apply(cfg: ArchConfig, p, x):
+    return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
+
+
+def mlp_init(gen, cfg: ArchConfig, device=None):
+    if cfg.mlp == "swiglu":
+        return swiglu_init(gen, cfg.d_model, cfg.d_ff, device)
+    return gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, device)
+
+
+def mlp_apply(cfg: ArchConfig, p, x):
+    return swiglu(p, x) if cfg.mlp == "swiglu" else gelu_mlp(p, x)
+
+
+def attn_init(gen, cfg: ArchConfig, device=None):
+    d, hd = cfg.d_model, cfg.d_head
+    p = {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, device=device),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, device=device),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, device=device),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, device=device),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = rmsnorm_init(hd, device)
+        p["knorm"] = rmsnorm_init(hd, device)
+    return p
+
+
+def attn_apply(
+    p,
+    cfg: ArchConfig,
+    x: torch.Tensor,                   # (B, S, D) queries source
+    kv_x: Optional[torch.Tensor] = None,  # cross-attn memory (B, Sk, D) or None
+    positions: Optional[torch.Tensor] = None,  # (S,) absolute positions of x
+    causal: bool = True,
+    use_rope: bool = True,
+    cache=None,                        # dict(k, v, len) or None
+    window: Optional[int] = None,
+):
+    """Self- or cross-attention.  Returns (y, new_cache).
+
+    Cache modes:
+    * cache None, kv from x           -> training / one-shot forward
+    * cache given, S > 1              -> prefill (cache is filled)
+    * cache given, S == 1             -> decode (ring-buffer write + attend)
+
+    The new cache is a new tensor; ``cache`` is never written.
+    """
+    B, S, D = x.shape
+    hd = cfg.d_head
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
+    k = dense(p["wk"], src).reshape(B, Skv, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], src).reshape(B, Skv, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["qnorm"], q)
+        k = rmsnorm(p["knorm"], k)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = rope(k, positions[:Skv], cfg.rope_theta)
+
+    new_cache = cache
+    if cache is not None and S == 1:
+        # decode: ring-buffer write at pos % cache_size
+        L = cache["k"].shape[1]
+        pos = cache["len"]
+        slot = pos % L if window is not None else torch.clamp(pos, max=L - 1)
+        idx = slot.reshape(1).long()
+        ck = cache["k"].index_copy(1, idx, k.to(cache["k"].dtype))
+        cv = cache["v"].index_copy(1, idx, v.to(cache["v"].dtype))
+        o = decode_attention(q, ck, cv, torch.clamp(pos + 1, max=L))
+        new_cache = {"k": ck, "v": cv, "len": pos + 1}
+    else:
+        if cache is not None:
+            # prefill: write the (possibly windowed) KV tail into the cache
+            L = cache["k"].shape[1]
+            kt = k[:, -L:].to(cache["k"].dtype)
+            vt = v[:, -L:].to(cache["v"].dtype)
+            nt = kt.shape[1]
+            if window is not None:
+                # ring layout: entry for absolute position p lives at p % L
+                idx = (positions[-nt:] % L).long()
+                ck = cache["k"].index_copy(1, idx, kt)
+                cv = cache["v"].index_copy(1, idx, vt)
+            else:
+                ck = cache["k"].clone()
+                cv = cache["v"].clone()
+                ck[:, :nt] = kt
+                cv[:, :nt] = vt
+            new_cache = {"k": ck, "v": cv, "len": cache["len"] + S}
+        o = chunked_attention(q, k, v, causal=causal, window=window)
+    y = dense(p["wo"], o.reshape(B, S, cfg.n_heads * hd))
+    return y, new_cache
+
+
+def block_init(gen, cfg: ArchConfig, device=None):
+    return {
+        "ln1": norm_init(cfg, device=device),
+        "attn": attn_init(gen, cfg, device),
+        "ln2": norm_init(cfg, device=device),
+        "mlp": mlp_init(gen, cfg, device),
+    }
+
+
+def block_apply(p, cfg: ArchConfig, x, positions=None, cache=None,
+                causal=True, window=None, kv_x=None, use_rope=True):
+    h, new_cache = attn_apply(
+        p["attn"], cfg, norm_apply(cfg, p["ln1"], x), kv_x=kv_x,
+        positions=positions, causal=causal, cache=cache, window=window,
+        use_rope=use_rope,
+    )
+    x = x + h
+    x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
+    return x, new_cache
+
+
+# ------------------------------------------------------------- dense stacks
+
+def stack_init(gen, cfg: ArchConfig, n: int, init_fn=block_init, device=None):
+    return tree_stack([init_fn(gen, cfg, device) for _ in range(n)])
+
+
+def dense_params_init(gen, cfg: ArchConfig, device=None):
+    device = resolve_device(device)
+    p = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model, device),
+        "blocks": stack_init(gen, cfg, cfg.n_layers, device=device),
+        "ln_f": norm_init(cfg, device=device),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab, scale=0.02,
+                               device=device)
+    return p
+
+
+def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["embed"][tokens].to(torch.bfloat16)
+
+
+def head_logits(p, cfg: ArchConfig, x):
+    if cfg.tie_embeddings:
+        return x @ p["embed"].T.to(x.dtype)
+    return x @ p["head"].to(x.dtype)
+
+
+def dense_forward(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) int tokens -> (B, S, V) logits."""
+    x = embed_tokens(p, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+
+    def body(x, layer_p, _):
+        return block_apply(layer_p, cfg, x, positions=positions,
+                           window=cfg.sliding_window)
+
+    x, _ = scan_layers(body, x, p["blocks"])
+    x = norm_apply(cfg, p["ln_f"], x)
+    return head_logits(p, cfg, x)
+
+
+def kv_cache_init(lead, batch: int, L: int, cfg: ArchConfig, device=None,
+                  dtype=torch.bfloat16):
+    """Zero KV cache with leading (stack) dims ``lead``."""
+    dev = resolve_device(device)
+    shape = tuple(lead) + (batch, L, cfg.n_kv_heads, cfg.d_head)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "len": torch.zeros(tuple(lead), dtype=torch.int32, device=dev),
+    }
+
+
+def dense_init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None,
+                     dtype=torch.bfloat16):
+    L = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    return kv_cache_init((cfg.n_layers,), batch, L, cfg, device, dtype)
+
+
+def dense_prefill(p, cfg: ArchConfig, tokens: torch.Tensor, cache):
+    """Prefill: run the full prompt, fill caches, return last-token logits."""
+    x = embed_tokens(p, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+
+    def body(x, layer_p, layer_c):
+        return block_apply(layer_p, cfg, x, positions=positions,
+                           cache=layer_c, window=cfg.sliding_window)
+
+    x, new_cache = scan_layers(body, x, p["blocks"], cache)
+    x = norm_apply(cfg, p["ln_f"], x[:, -1:])
+    return head_logits(p, cfg, x), new_cache
+
+
+def dense_decode_step(p, cfg: ArchConfig, token: torch.Tensor, pos, cache):
+    """One decode step.  token: (B, 1) -> logits (B, 1, V), updated cache."""
+    x = embed_tokens(p, token)
+    positions = positions_at(pos, x.device)
+
+    def body(x, layer_p, layer_c):
+        return block_apply(layer_p, cfg, x, positions=positions,
+                           cache=layer_c, window=cfg.sliding_window)
+
+    x, new_cache = scan_layers(body, x, p["blocks"], cache)
+    x = norm_apply(cfg, p["ln_f"], x)
+    return head_logits(p, cfg, x), new_cache

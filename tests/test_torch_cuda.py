@@ -517,3 +517,61 @@ def test_a_rank_that_raises_on_the_card_fails_the_call_in_time(dev):
     assert mesh.closed and not _rank_processes()
     with pytest.raises(RuntimeError, match="closed"):
         run_distributed(x, "box2d1r", 4, 2, mesh)
+
+
+_LM_ARCHS = ("minitron-4b", "phi3-medium-14b", "h2o-danube-1.8b",
+             "qwen3-0.6b", "llama-3.2-vision-90b", "zamba2-2.7b",
+             "llama4-maverick-400b-a17b", "mixtral-8x7b", "whisper-tiny",
+             "mamba2-130m")
+
+
+def _lm_batch(cfg, B=2, S=32, device="cpu"):
+    rng = np.random.default_rng(sum(map(ord, cfg.name)))
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))}
+    for key, n, fam in (("images", cfg.n_image_tokens, "vlm"),
+                        ("frames", cfg.n_frames, "encdec")):
+        if cfg.family == fam:
+            batch[key] = torch.from_numpy(rng.standard_normal(
+                (B, n, cfg.d_model)).astype(np.float32)).bfloat16()
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_smoke_model_on_the_card_equals_the_cpu(dev, arch):
+    """One set of CPU-drawn port weights: forward, prefill and a decode
+    step on the card within 5e-2 (relative to the max |logit|) of the
+    CPU's, prefill within 1e-3 of the card's own forward, and
+    ``greedy_generate`` on the card gives tokens in range."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve import greedy_generate
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    cpu_p = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    dev_p = tree_map(lambda t: t.to(dev), cpu_p)
+    B, S = 2, 32
+    cpu_b = _lm_batch(cfg, B, S)
+    dev_b = {k: v.to(dev) for k, v in cpu_b.items()}
+    out = {}
+    for name, p, b, d in (("cpu", cpu_p, cpu_b, "cpu"),
+                          ("card", dev_p, dev_b, dev)):
+        logits, _ = model.forward(p, b)
+        pre, cache = model.prefill(p, b, model.init_cache(B, S + 4, device=d))
+        out[name] = (logits.cpu(), pre.cpu(), cache)
+    nxt = out["cpu"][1][:, -1].argmax(-1)[:, None].int()
+    dec_cpu, _ = model.decode_step(cpu_p, nxt, S, out["cpu"][2])
+    dec_dev, _ = model.decode_step(dev_p, nxt.to(dev), S, out["card"][2])
+    for got, ref in ((out["card"][0], out["cpu"][0]),
+                     (out["card"][1], out["cpu"][1]),
+                     (dec_dev.cpu(), dec_cpu)):
+        assert torch.isfinite(got.float()).all()
+        assert _rel_err(got, ref) < 5e-2, (arch, _rel_err(got, ref))
+    e_pre = float((out["card"][1][:, 0].float()
+                   - out["card"][0][:, -1].float()).abs().max())
+    assert e_pre < 1e-3, (arch, e_pre)
+    toks = greedy_generate(model, dev_p, dev_b, 4, S + 4)
+    assert toks.shape == (B, 4) and toks.device.type == "cuda"
+    assert bool(((toks >= 0) & (toks < cfg.vocab)).all())

@@ -39,7 +39,14 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.serve.scheduler",
             "repro_torch.serve.service", "repro_torch.core.shard",
             "repro_torch.core.hierarchy", "repro_torch.core.distributed",
-            "repro_torch.core.ranks", "repro_torch.launch.elastic"} \
+            "repro_torch.core.ranks", "repro_torch.launch.elastic",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.mamba2_130m",
+            "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.models", "repro_torch.models.layers",
+            "repro_torch.models.transformer", "repro_torch.models.moe",
+            "repro_torch.models.mamba2", "repro_torch.models.api",
+            "repro_torch.models.convert", "repro_torch.serve.decode"} \
         <= set(names)
     code = (
         "import importlib, sys\n"
