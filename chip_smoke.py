@@ -115,6 +115,27 @@ Phases, none of them caught — any failure exits non-zero:
    Records prefill and decode-step ms (CUDA events), tokens/s, the
    device memory peak and each decode step's weight-byte bound.  No
    kernel of ``repro_torch.kernels`` launches (the LM stack has none).
+14. lm_train: the LM stack's training path (``Trainer.run`` with
+   ``AdamW`` on ``SyntheticLM`` batches, weights from a seeded generator
+   on the card) at full published width, 4 x 2048 tokens a step.  (a)
+   qwen3-0.6b whole, 20 steps at the train CLI's defaults (lr 3e-4,
+   warmup 1): every loss finite, the mean of the last 5 below the mean of
+   the first 5 minus 0.2 (tests/test_train_loop.py:22); then one step of
+   4 microbatches against one of 1 from the trained params (fresh
+   moments, lr 1e-3, no clipping), params within 3e-3 absolute
+   (tests/test_train_loop.py:27-44).  Records step ms (CUDA events, the
+   first step apart), tokens/s, the device peak and the step's FLOP
+   bound at the data-sheet bf16 dense rate.  (b) mamba2-130m whole: 6
+   steps straight against 3, a checkpoint, a restore and 3 more
+   (``ckpt_every=3`` under ``chiprun_out/``, deleted after), every leaf
+   bitwise equal, under ``torch.use_deterministic_algorithms`` (the
+   process sets ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts); 20 steps
+   with bf16 gradient compression converge (tests/test_train_loop.py:
+   61-70); seconds per save and restore.  (c) mixtral-8x7b with
+   ``n_layers`` cut to 1 (params, grads and two fp32 moments are 27 GB a
+   layer): 3 steps, losses finite, the router's aux loss non-zero, every
+   param leaf moved; step ms and the device peak.  No kernel of
+   ``repro_torch.kernels`` launches.
 
 Every phase records the host's RAM peak (``MemTotal - MemAvailable``,
 sampled every 0.2 s).  The line before the last is the card's name and
@@ -144,6 +165,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# deterministic cuBLAS for the lm_train phase's bitwise resume; read when
+# CUDA starts, so set before anything touches the card
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -185,7 +209,10 @@ from repro_torch.kernels.stencil_multistep_db import (  # noqa: E402
 from repro_torch.launch.elastic import run_elastic_sharded  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.moe import moe_capacity  # noqa: E402
-from repro_torch.models.transformer import tree_map  # noqa: E402
+from repro_torch.models.transformer import tree_leaves, tree_map  # noqa: E402
+from repro_torch.data import DataSpec, SyntheticLM  # noqa: E402
+from repro_torch.optim import AdamW  # noqa: E402
+from repro_torch.train import TrainConfig, Trainer  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     StencilJob, StencilService, greedy_generate)
 
@@ -230,6 +257,11 @@ LM_MODELS = (("qwen3-0.6b", None), ("mamba2-130m", None),
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_SEED = 20251017
 LM_PREFILL_TOL, LM_DECODE_TOL = 1e-3, 5e-2   # tests/test_models.py:61, :73
+# the lm_train phase: 4 x 2048 tokens a step; the microbatch gate's bound
+# (tests/test_train_loop.py:44); the H100 SXM data sheet's bf16 dense rate
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 2048, 20
+LM_MICROBATCH_ATOL = 3e-3
+BF16_FLOPS_PER_S = 989e12
 RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
 
@@ -1386,28 +1418,35 @@ def _leaves(tree) -> list:
     return out
 
 
-def device_busy_ms(fn):
-    """Device-busy ms of one call of ``fn``: the union of its kernels'
-    (and copies') spans on the card, from a ``torch.profiler`` trace
-    (None when the trace holds no device event)."""
+def device_kernel_ms(fn, top: int = 8) -> dict:
+    """One call of ``fn`` traced on the card alone (host-side op events
+    would slow a training step of ~50k launches several times over): the
+    device-busy ms (the union of its kernels' and copies' spans), the
+    number of spans, and the ``top`` kernels by summed device ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
     if not spans:
-        return None
+        return {"busy_ms": None, "kernels": 0, "top": []}
+    spans.sort()
     busy, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:
         if s > hi:
             busy, lo = busy + hi - lo, s
         hi = max(hi, e)
-    return (busy + hi - lo) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"busy_ms": (busy + hi - lo) / 1e3, "kernels": len(spans),
+            "top": [(name[:120], ms) for name, ms in ranked]}
 
 
 def lm_decode_gate(model, params, tokens: torch.Tensor) -> tuple:
@@ -1496,7 +1535,7 @@ def lm_serve_one(arch: str, n_layers) -> dict:
         state["pos"] += 1
 
     rec["decode_ms_per_step"] = cuda_ms(one_step, 8)
-    busy = device_busy_ms(one_step)
+    busy = device_kernel_ms(one_step)["busy_ms"]
     rec["decode_device_busy_ms"] = busy
     rec["decode_device_busy_share"] = (
         None if busy is None else busy / rec["decode_ms_per_step"])
@@ -1558,6 +1597,271 @@ def phase_lm_serve() -> None:
         RESULT["lm_serve"] = rec
 
 
+def dense_train_flops(cfg, B: int, S: int) -> dict:
+    """FLOPs of one training step of a dense model as the port runs it:
+    each layer's GEMMs four times (forward, the layer's remat recompute,
+    two in the backward), the tied head's three times, and attention's
+    score and value products five times (forward, the layer's recompute,
+    the q chunk's recompute, two in the backward) over every kv block of
+    every q chunk, masked or not (``chunked_attention`` skips none)."""
+    T, d, hd = B * S, cfg.d_model, cfg.d_head
+    layer = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+             + (3 if cfg.mlp == "swiglu" else 2) * d * cfg.d_ff)
+    q_chunk, kv_chunk = min(512, S), min(1024, S)
+    sq, sk = -(-S // q_chunk) * q_chunk, -(-S // kv_chunk) * kv_chunk
+    out = {"layer_gemms": 4 * 2 * T * layer * cfg.n_layers,
+           "head": 3 * 2 * T * d * cfg.vocab,
+           "attention": 5 * 2 * 2 * B * cfg.n_heads * sq * sk * hd
+           * cfg.n_layers}
+    out["total"] = sum(out.values())
+    return out
+
+
+class StepTimer:
+    """Wraps ``Trainer.step`` with CUDA events, read after the run."""
+
+    def __init__(self, trainer):
+        self.events = []
+        inner = trainer.step
+
+        def step(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        trainer.step = step
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def lm_train_data(cfg, seed: int = LM_SEED) -> SyntheticLM:
+    return SyntheticLM(DataSpec(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                                global_batch=LM_TRAIN_BATCH, seed=seed))
+
+
+def lm_gen() -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(LM_SEED)
+
+
+def lm_train_qwen3() -> dict:
+    """(a) qwen3-0.6b whole: 20 steps, the loss gate, the microbatch gate."""
+    cfg = get_config("qwen3-0.6b")
+    model = build_model(cfg)
+    data = lm_train_data(cfg)
+    tr = Trainer(model, AdamW(lr=3e-4, warmup_steps=1,
+                              total_steps=LM_TRAIN_STEPS),
+                 TrainConfig(steps=LM_TRAIN_STEPS, log_every=10))
+    timer = StepTimer(tr)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state, losses = tr.run(lm_gen(), data)
+    wall = time.perf_counter() - t0
+    ms = timer.ms()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(losses) == LM_TRAIN_STEPS and bool(np.isfinite(losses).all()),
+          "qwen3 losses", losses)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first - 0.2, "qwen3 loss did not decrease", losses)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    step_ms = float(np.mean(ms[1:]))
+    flops = dense_train_flops(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # the optimizer's own traffic: p, g, m, v read and p, m, v written
+    opt_bytes = 7 * 4 * n_params
+    rec = dict(arch="qwen3-0.6b", n_layers=cfg.n_layers, vocab=cfg.vocab,
+               params=n_params, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+               steps=LM_TRAIN_STEPS, losses=losses, first5_mean=first,
+               last5_mean=last, step_ms=ms, first_step_ms=ms[0],
+               step_ms_mean=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               run_wall_s=wall, max_memory_allocated_gb=peak,
+               flops=flops,
+               flop_bound_ms=flops["total"] / BF16_FLOPS_PER_S * 1e3,
+               optimizer_byte_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3)
+    rec["bound_ms"] = max(rec["flop_bound_ms"], rec["optimizer_byte_bound_ms"])
+
+    # one more step, 4 microbatches against 1, from the trained params
+    # with fresh moments (the JAX test's lr 1e-3, no clipping, step 1)
+    del opt_state
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch(LM_TRAIN_STEPS).items()}
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=2, clip_norm=None)
+    out = {}
+    for m in (1, 4):
+        mt = Trainer(model, opt, TrainConfig(steps=1, microbatches=m),
+                     donate=False)
+        res = tree_map(lambda p: torch.zeros((), device=p.device), params)
+        state = opt.init(params)
+        if m == 1:
+            # the same work as a training step, traced on the card
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec["step_profile"] = device_kernel_ms(
+                lambda: out.update({1: mt.step(params, state, res, batch)[0]}))
+            rec["profiled_step_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        else:
+            out[m] = mt.step(params, state, res, batch)[0]
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(tree_leaves(out[1]), tree_leaves(out[4])))
+    rec["microbatch_max_abs_diff"] = err
+    check(err <= LM_MICROBATCH_ATOL, "microbatches 4 vs 1", err)
+    del out, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_train_mamba2(out_dir: str) -> dict:
+    """(b) mamba2-130m whole: bitwise resume under deterministic
+    algorithms; bf16 gradient compression converges."""
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg)
+    data = lm_train_data(cfg)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=6)
+    ckpt_dir = os.path.join(out_dir, "lm_train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rec = {"arch": "mamba2-130m", "n_layers": cfg.n_layers,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ}
+
+    def trainer(steps, ckpt):
+        tr = Trainer(model, opt, TrainConfig(steps=steps, ckpt_every=3,
+                                             log_every=1000))
+        if ckpt:
+            tr.ckpt = TimedCheckpointManager(ckpt_dir, keep=3)
+        return tr
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True)
+    try:
+        p_full, st_full, l_full = trainer(6, False).run(lm_gen(), data)
+        first = trainer(3, True)
+        first.run(lm_gen(), data)                       # saves step 2
+        second = trainer(6, True)
+        p_res, st_res, l_res = second.run(lm_gen(), data, resume=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    full = tree_leaves({"p": p_full, "mu": st_full.mu, "nu": st_full.nu})
+    res = tree_leaves({"p": p_res, "mu": st_res.mu, "nu": st_res.nu})
+    differ = sum(not torch.equal(a, b) for a, b in zip(full, res))
+    rec.update(losses_straight=l_full, losses_resumed=l_res,
+               leaves=len(full), leaves_not_bitwise=differ,
+               save_s=first.ckpt.save_s + second.ckpt.save_s,
+               restore_s=second.ckpt.restore_s,
+               checkpoint_gb=sum(t.numel() * t.element_size()
+                                 for t in full) / 1e9)
+    check(bool(np.isfinite(l_full).all()), "mamba2 losses", l_full)
+    check(l_res == l_full[3:] and differ == 0
+          and int(st_res.step) == int(st_full.step) == 6,
+          "mamba2 resume not bitwise", differ, l_full, l_res)
+    del p_full, st_full, p_res, st_res, full, res
+
+    tr = Trainer(model, AdamW(lr=3e-3, warmup_steps=2, total_steps=20),
+                 TrainConfig(steps=20, log_every=1000,
+                             grad_compression="bf16"))
+    timer = StepTimer(tr)
+    _, _, losses = tr.run(lm_gen(), data)
+    ms = timer.ms()
+    rec.update(compression_losses=losses,
+               compression_first4_mean=float(np.mean(losses[:4])),
+               compression_last4_mean=float(np.mean(losses[-4:])),
+               step_ms_mean=float(np.mean(ms[1:])),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(bool(np.isfinite(losses).all())
+          and rec["compression_last4_mean"] < rec["compression_first4_mean"],
+          "mamba2 bf16 compression did not converge", losses)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_train_mixtral() -> dict:
+    """(c) mixtral-8x7b, one layer: 3 steps through the MoE backward."""
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=1)
+    model = build_model(cfg)
+    data = lm_train_data(cfg)
+    tr = Trainer(model, AdamW(lr=3e-4, warmup_steps=1, total_steps=3),
+                 TrainConfig(steps=3, log_every=1000))
+    timer = StepTimer(tr)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the run draws the same weights from the same seed: keep a copy to
+    # see every leaf move, and read the router's aux loss on step 0's batch
+    params0 = model.init_params(lm_gen())
+    with torch.no_grad():
+        batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+        aux = float(model.forward(params0, batch)[1])
+    before = tree_leaves(params0)
+    del batch
+    params, _, losses = tr.run(lm_gen(), data)
+    ms = timer.ms()
+    after = tree_leaves(params)
+    unmoved = sum(torch.equal(a, b) for a, b in zip(before, after))
+    rec = dict(arch="mixtral-8x7b", n_layers=cfg.n_layers,
+               n_layers_published=full.n_layers, batch=LM_TRAIN_BATCH,
+               seq=LM_TRAIN_SEQ, params=sum(t.numel() for t in after),
+               losses=losses, aux_step0=aux, leaves=len(after),
+               leaves_unmoved=unmoved, step_ms=ms,
+               step_ms_mean=float(np.mean(ms[1:])),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(bool(np.isfinite(losses).all()), "mixtral losses", losses)
+    check(aux != 0.0 and np.isfinite(aux), "mixtral aux loss", aux)
+    check(unmoved == 0, "mixtral params that did not move", unmoved)
+    del before, after, params, params0
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lm_train(out_dir: str) -> None:
+    with phase("lm_train"):
+        check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8",
+              "CUBLAS_WORKSPACE_CONFIG", os.environ.get(
+                  "CUBLAS_WORKSPACE_CONFIG"))
+        reset_counts()
+        rec = {"qwen3": lm_train_qwen3()}
+        q = rec["qwen3"]
+        log(f"lm_train qwen3-0.6b (full width, {q['params'] / 1e6:.1f} M "
+            f"params): {q['steps']} steps of {q['batch']} x {q['seq']} "
+            f"tokens, loss {q['first5_mean']:.4f} -> {q['last5_mean']:.4f} "
+            f"(means of the first and last 5); step {q['step_ms_mean']:.1f} "
+            f"ms (CUDA events, first step {q['first_step_ms']:.1f} ms apart), "
+            f"{q['tokens_per_s']:.0f} tokens/s; bound {q['bound_ms']:.2f} ms "
+            f"({q['flops']['total'] / 1e12:.2f} TFLOP at the data-sheet "
+            f"989 TFLOP/s bf16 dense, {q['step_ms_mean'] / q['bound_ms']:.1f}"
+            f"x); device busy {q['step_profile']['busy_ms']} ms in "
+            f"{q['step_profile']['kernels']} kernels (a profiled step, "
+            f"{q['profiled_step_wall_ms']:.1f} ms wall); device memory peak "
+            f"{q['max_memory_allocated_gb']:.2f} GB; microbatches 4 vs 1: "
+            f"{q['microbatch_max_abs_diff']:.3e} abs")
+        for name, ms in q["step_profile"]["top"]:
+            log(f"  qwen3 step, device ms {ms:9.2f}  {name}")
+        m = rec["mamba2"] = lm_train_mamba2(out_dir)
+        log(f"lm_train mamba2-130m (full width): resume after step 3 "
+            f"bitwise ({m['leaves']} leaves, deterministic algorithms); "
+            f"checkpoint {m['checkpoint_gb']:.2f} GB, save "
+            f"{', '.join(f'{s:.2f}' for s in m['save_s'])} s, restore "
+            f"{', '.join(f'{s:.2f}' for s in m['restore_s'])} s; bf16 "
+            f"compression loss {m['compression_first4_mean']:.4f} -> "
+            f"{m['compression_last4_mean']:.4f}, step {m['step_ms_mean']:.1f} "
+            f"ms; device memory peak {m['max_memory_allocated_gb']:.2f} GB")
+        x = rec["mixtral"] = lm_train_mixtral()
+        log(f"lm_train mixtral-8x7b (full width, n_layers cut to "
+            f"{x['n_layers']} of {x['n_layers_published']}; "
+            f"{x['params'] / 1e9:.2f} B params): losses "
+            f"{', '.join(f'{v:.4f}' for v in x['losses'])}, aux "
+            f"{x['aux_step0']:.4f}, {x['leaves']} leaves all moved; step "
+            f"{x['step_ms_mean']:.1f} ms; device memory peak "
+            f"{x['max_memory_allocated_gb']:.2f} GB")
+        launched = counts()
+        check(sum(launched.values()) == 0, "a kernel launched", launched)
+        RESULT["lm_train"] = rec
+
+
 def kernels_line() -> dict:
     out = []
     for impl, key in (("cuda", "main_path_box2d1r"),
@@ -1613,6 +1917,7 @@ def main(argv=None) -> int:
     phase_elastic(args.size)
     phase_shard_map(args.size)
     phase_lm_serve()
+    phase_lm_train(out_dir)
     RESULT["total_s"] = time.perf_counter() - t_all
     line = kernels_line()
     RESULT.update(line)

@@ -8,8 +8,11 @@ the stencil service of ``repro.serve`` and the elastic re-planning of
 ``repro.launch.elastic``, on PyTorch tensors, with the fused-stencil
 kernels written by hand for Hopper (``repro_torch.kernels``); and the
 LM stack's serve path (``repro_torch.configs``, ``repro_torch.models``,
-``repro_torch.serve.decode``) for all six model families.  It
-imports neither JAX nor ``repro``.  Importing it builds and loads no
+``repro_torch.serve.decode``) for all six model families, and its
+training path (``repro_torch.optim``, ``.train``, ``.data`` and
+``.launch.train``: AdamW, the Trainer with layer remat, the synthetic
+data pipeline and the train CLI).  It imports neither JAX nor
+``repro``.  Importing it builds and loads no
 kernel and starts no process: the CUDA library is built the first time
 a kernel launches, and rank processes start with their mesh.  Entry
 points run on the GPU unless the caller passes ``device="cpu"``.
@@ -52,6 +55,9 @@ from .core import (  # noqa: F401
 )
 from .checkpoint import CheckpointManager  # noqa: F401
 from .serve import JobResult, StencilJob, StencilService  # noqa: F401
+from .data import DataSpec, SyntheticLM  # noqa: F401
+from .optim import AdamW, OptState  # noqa: F401
+from .train import TrainConfig, Trainer, compress_grads  # noqa: F401
 
 __all__ = [
     "Box",
@@ -92,4 +98,11 @@ __all__ = [
     "StencilService",
     "StencilJob",
     "JobResult",
+    "AdamW",
+    "OptState",
+    "DataSpec",
+    "SyntheticLM",
+    "TrainConfig",
+    "Trainer",
+    "compress_grads",
 ]

@@ -15,13 +15,17 @@ is written last and doubles as the completeness marker —
 ``all_steps``/``restore`` skip any step directory missing it or the
 arrays payload.  ``restore`` returns leaves as numpy; the caller
 moves them onto its device.  A ``torch.Tensor`` leaf is saved as
-``leaf.detach().cpu().numpy()``.
+``leaf.detach().cpu().numpy()``, except a bf16 one: numpy has no bf16
+(the JAX package gets it from ml_dtypes), so it is saved as the JAX
+manager writes it — its raw 2-byte records under the descr ``'<V2'`` —
+and restored as a CPU bf16 tensor wherever the ``like`` leaf is bf16.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import zipfile
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -30,10 +34,46 @@ import torch
 __all__ = ["CheckpointManager"]
 
 
+# what np.savez writes for an ml_dtypes bfloat16 array (its ``dtype.str``);
+# np.load reads it back as plain 2-byte records, ``|V2``
+_BF16_DESCR = "<V2"
+
+
+def _is_bf16_records(a: np.ndarray) -> bool:
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2 and a.dtype.names is None
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.contiguous().view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _from_numpy(a: np.ndarray, like):
+    """A restored leaf; 2-byte records become bf16 where ``like`` is bf16."""
+    if (isinstance(like, torch.Tensor) and like.dtype == torch.bfloat16
+            and _is_bf16_records(a)):
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return a
+
+
+def _savez(f, flat: dict) -> None:
+    """``np.savez(f, **flat)``, writing 2-byte records (bf16) under the
+    descr the JAX package's ``np.savez`` gives a bf16 array."""
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in flat.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if _is_bf16_records(a):
+                    np.lib.format.write_array_header_1_0(fid, {
+                        "descr": _BF16_DESCR, "fortran_order": False,
+                        "shape": a.shape})
+                    fid.write(np.ascontiguousarray(a).tobytes())
+                else:
+                    np.lib.format.write_array(fid, a, allow_pickle=False)
 
 
 def _flatten(tree) -> dict:
@@ -65,7 +105,7 @@ def _unflatten(flat: dict, like):
             return tuple(kids)
         if isinstance(node, list):
             return [rec(f"{prefix}/{i}", v) for i, v in enumerate(node)]
-        return flat[prefix]
+        return _from_numpy(flat[prefix], node)
 
     return rec("", like)
 
@@ -110,7 +150,7 @@ class CheckpointManager:
         flat = _flatten(tree)
         # arrays first, meta last: meta.json is the completeness marker
         with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
-            np.savez(f, **flat)
+            _savez(f, flat)
             f.flush()
             os.fsync(f.fileno())
         meta = {"step": step, "n_leaves": len(flat)}

@@ -1,5 +1,5 @@
 """Unified model API: build(config) -> Model with init/forward/serve closures
-(the port of ``repro.models.api``, forward and serve paths).
+(the port of ``repro.models.api``).
 
 One entry point for all 10 assigned architectures:
 
@@ -19,6 +19,10 @@ Every family exposes the same surface:
     decode_step(params, token, pos, cache)  -> (logits, cache)
 
 ``device=None`` means ``cuda``; pass ``device="cpu"`` for the CPU.
+``loss`` is differentiable: under autograd every family's outer layer
+loop runs each layer under ``torch.utils.checkpoint`` where the JAX
+package wraps its scan body in ``jax.checkpoint``; inference runs no
+remat.
 Params are nested dicts of fp32 tensors with the JAX package's keys and
 shapes (``repro_torch.models.convert`` carries them across).  Modality
 frontends (vision patches, audio frames) are stubs per the assignment:
@@ -33,12 +37,13 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
-from .layers import chunked_attention, dense, dense_init, embed_init
+from .layers import chunked_attention, dense, dense_init, embed_init, remat_call
 from .mamba2 import mamba_apply, mamba_decode_step, mamba_init, mamba_init_state
 from .moe import moe_apply, moe_init
 from .transformer import (
     attn_apply, attn_init, block_apply, block_init, mlp_apply, mlp_init,
-    norm_apply, norm_init, stack_init, scan_layers, tree_index, tree_map, tree_stack,
+    norm_apply, norm_init, stack_init, scan_layers, tree_index, tree_map,
+    tree_stack, tree_unbind,
     kv_cache_init, positions_at,
     dense_params_init, dense_forward, dense_init_cache, dense_prefill,
     dense_decode_step,
@@ -59,7 +64,9 @@ class Model:
     decode_step: Callable  # (params, token, pos, cache) -> (logits, cache)
 
     def loss(self, params, batch):
-        """Mean next-token cross entropy + 0.01 · aux (forward only)."""
+        """Mean next-token cross entropy + 0.01 · aux.  The label's logit
+        is a ``gather`` where JAX takes a one-hot masked sum: the same
+        value and gradient, without a (B, S, V) mask."""
         logits, aux = self.forward(params, batch)
         labels = batch["labels"]
         lf = logits.float()
@@ -136,7 +143,7 @@ def _moe_super_apply(p, cfg: ArchConfig, x, positions, caches=None):
                                window=cfg.sliding_window)
 
         dc = caches["dense"] if caches is not None else None
-        x, ndc = scan_layers(body, x, p["dense_blocks"], dc)
+        x, ndc = scan_layers(body, x, p["dense_blocks"], dc, remat=False)
         if dc is not None:
             new_caches["dense"] = ndc
     h, nc = attn_apply(p["moe_attn"], cfg, norm_apply(cfg, p["moe_ln1"], x),
@@ -171,10 +178,12 @@ def _build_moe(cfg: ArchConfig) -> Model:
     def _run(p, x, positions, cache=None):
         aux = 0.0
         new = []
-        for i in range(n_super):
-            sc = None if cache is None else tree_index(cache, i)
-            x, a, nc = _moe_super_apply(tree_index(p["supers"], i), cfg, x,
-                                        positions, caches=sc)
+        supers = tree_unbind(p["supers"], n_super)
+        caches = [None] * n_super if cache is None else tree_unbind(cache, n_super)
+        for sp, sc in zip(supers, caches):
+            x, a, nc = remat_call(
+                lambda x, sp, sc: _moe_super_apply(sp, cfg, x, positions, sc),
+                x, sp, sc)
             aux = aux + a
             new.append(nc)
         x = norm_apply(cfg, p["ln_f"], x)
@@ -279,7 +288,8 @@ def _build_hybrid(cfg: ArchConfig) -> Model:
     def _group(p_shared, gp, x, positions, gcache):
         """one group: per mamba layers + shared attn application."""
         if gcache is None:
-            x, _ = scan_layers(lambda x, lp, _: mamba_apply(lp, cfg, x), x, gp)
+            x, _ = scan_layers(lambda x, lp, _: mamba_apply(lp, cfg, x), x, gp,
+                               remat=False)
             x, _ = block_apply(p_shared, cfg, x, positions=positions)
             return x, None
 
@@ -288,7 +298,7 @@ def _build_hybrid(cfg: ArchConfig) -> Model:
                 return mamba_decode_step(lp, cfg, x, lc)
             return mamba_apply(lp, cfg, x, return_state=True)
 
-        x, mc = scan_layers(mbody, x, gp, gcache["mamba"])
+        x, mc = scan_layers(mbody, x, gp, gcache["mamba"], remat=False)
         x, nac = block_apply(p_shared, cfg, x, positions=positions,
                              cache=gcache["attn"])
         return x, {"mamba": mc, "attn": nac}
@@ -384,11 +394,11 @@ def _build_vlm(cfg: ArchConfig) -> Model:
             return block_apply(bp, cfg, x, positions=positions, cache=bc)
 
         if gcache is None:
-            x, _ = scan_layers(body, x, gp["self"])
+            x, _ = scan_layers(body, x, gp["self"], remat=False)
             x, _ = _cross_block_apply(gp["cross"], cfg, x, kv_x=images)
             return x, None
         # with a cache, the cross KV comes from it (prefill included)
-        x, sc = scan_layers(body, x, gp["self"], gcache["self"])
+        x, sc = scan_layers(body, x, gp["self"], gcache["self"], remat=False)
         x, kv = _cross_block_apply(gp["cross"], cfg, x, kv_x=images,
                                    kv_cache=gcache["cross"])
         return x, {"self": sc, "cross": kv}

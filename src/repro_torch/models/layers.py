@@ -11,7 +11,9 @@ Conventions:
 * attention is *chunked* (online softmax, FlashAttention-style): a Python
   loop over q chunks, an inner loop over kv chunks — what the JAX
   package's ``lax.map``/``lax.scan`` do — so a long prefill never holds
-  an (S, S) score matrix.
+  an (S, S) score matrix, and under autograd each q chunk's kv loop is
+  recomputed in the backward (:func:`remat_call`, ``jax.checkpoint``
+  in the JAX code) instead of keeping its score tiles.
 
 The JAX numerics are the spec: the rmsnorm's cast order, the
 population variance of ``layernorm``, the tanh-approximate gelu, the
@@ -24,6 +26,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..core.device import resolve_device
 
@@ -32,7 +35,7 @@ __all__ = [
     "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm",
     "rope", "chunked_attention", "decode_attention",
     "swiglu_init", "swiglu", "gelu_mlp_init", "gelu_mlp",
-    "embed_init", "randn",
+    "embed_init", "randn", "remat_call",
 ]
 
 NEG_INF = -1e30   # the JAX package's mask value (and the running max's floor)
@@ -42,6 +45,28 @@ def randn(gen: torch.Generator, shape, device=None) -> torch.Tensor:
     """Standard normal fp32 draw from ``gen`` (on its own device), on ``device``."""
     t = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return t.to(resolve_device(device))
+
+
+def _tracks_grad(obj) -> bool:
+    if isinstance(obj, torch.Tensor):
+        return obj.requires_grad
+    if isinstance(obj, dict):
+        return any(_tracks_grad(v) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return any(_tracks_grad(v) for v in obj)
+    return False
+
+
+def remat_call(fn, *args, remat: bool = True):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``remat`` and autograd records the call — grad mode on and a tensor
+    of ``args`` requiring grad — so its activations are recomputed in
+    the backward.  Otherwise a plain call: inference runs exactly the
+    kernels it would without remat."""
+    if remat and torch.is_grad_enabled() and _tracks_grad(args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def dense_init(gen, d_in: int, d_out: int, scale: Optional[float] = None,
@@ -151,9 +176,7 @@ def chunked_attention(
     qpos_base = torch.arange(q_chunk, device=dev) + q_offset
     kpos_all = torch.arange(nk * kv_chunk, device=dev)
 
-    outs = []
-    for qi in range(nq):
-        qc = qp[:, :, :, qi * q_chunk:(qi + 1) * q_chunk]
+    def one_q_chunk(qc, kp, vp, qi: int):
         qpos = qpos_base + qi * q_chunk
         acc = torch.zeros((B, G, rep, q_chunk, Dh), dtype=q.dtype, device=dev)
         m = torch.full((B, G, rep, q_chunk), -math.inf, dtype=torch.float32,
@@ -176,7 +199,11 @@ def chunked_attention(
                    + o * beta[..., None].to(o.dtype))
             lse = lse * alpha + lb * beta
             m = m_new
-        outs.append(acc / lse.clamp_min(1e-30)[..., None].to(acc.dtype))
+        return acc / lse.clamp_min(1e-30)[..., None].to(acc.dtype)
+
+    outs = [remat_call(one_q_chunk, qp[:, :, :, qi * q_chunk:(qi + 1) * q_chunk],
+                       kp, vp, qi)
+            for qi in range(nq)]
     # nq x (B, G, rep, q_chunk, Dh) -> (B, Sq, H, Dh)
     out = torch.cat(outs, dim=3).reshape(B, H, nq * q_chunk, Dh)
     return out.movedim(1, 2)[:, :Sq]

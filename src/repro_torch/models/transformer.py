@@ -4,8 +4,13 @@ enc-dec families (the port of ``repro.models.transformer``).
 
 Stacked layer params keep their leading ``(n_layers, ...)`` axis, and a
 Python loop over the layers (:func:`scan_layers`) takes the place of
-``jax.lax.scan``: each layer gets views ``t[i]`` of the stacked tensors.
-Caches keep the same stacked layout.
+``jax.lax.scan``: each layer gets views of the stacked tensors, taken by
+one ``unbind(0)`` per stack, whose backward stacks the layers' grads
+once (a ``t[i]`` per layer would write a zero tensor of the whole stack
+per layer).  Under autograd each layer body runs under
+``torch.utils.checkpoint`` (``jax.checkpoint`` around the JAX scan
+body): the backward recomputes a layer instead of keeping its
+activations.  Caches keep the same stacked layout.
 
 Caches are values, as in JAX: ``prefill`` and ``decode_step`` return a
 new cache and never write a tensor of the cache they were given, so a
@@ -21,8 +26,8 @@ from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from .layers import (
     chunked_attention, decode_attention, dense, dense_init, embed_init,
-    gelu_mlp, gelu_mlp_init, layernorm, layernorm_init, rmsnorm, rmsnorm_init,
-    rope, swiglu, swiglu_init,
+    gelu_mlp, gelu_mlp_init, layernorm, layernorm_init, remat_call, rmsnorm,
+    rmsnorm_init, rope, swiglu, swiglu_init,
 )
 
 __all__ = [
@@ -30,7 +35,8 @@ __all__ = [
     "norm_init", "norm_apply", "mlp_init", "mlp_apply",
     "stack_init", "dense_params_init", "dense_forward", "dense_init_cache",
     "dense_decode_step", "dense_prefill", "kv_cache_init", "positions_at",
-    "tree_map", "tree_index", "tree_stack", "scan_layers",
+    "tree_map", "tree_leaves", "tree_index", "tree_unbind", "tree_stack",
+    "scan_layers",
 ]
 
 
@@ -43,9 +49,26 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, in ``jax.tree.leaves`` order (sorted
+    keys)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
 def tree_index(tree, i: int):
     """Layer ``i`` of a stacked tree: views, not copies."""
     return tree_map(lambda t: t[i], tree)
+
+
+def tree_unbind(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree: views, one ``unbind(0)`` per
+    stacked leaf."""
+    if isinstance(tree, dict):
+        kids = {k: tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: kids[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def tree_stack(trees):
@@ -58,14 +81,17 @@ def _n_stacked(tree) -> int:
     return tree.shape[0]
 
 
-def scan_layers(body, x, params, cache=None):
+def scan_layers(body, x, params, cache=None, remat: bool = True):
     """``x`` through ``body(x, layer_params, layer_cache)`` for every layer
     of the stacked ``params``; returns ``(x, stacked new caches)``, the
-    second None when ``cache`` is None."""
+    second None when ``cache`` is None.  With ``remat``, each layer runs
+    under :func:`remat_call`."""
+    n = _n_stacked(params)
+    layers = tree_unbind(params, n)
+    caches = [None] * n if cache is None else tree_unbind(cache, n)
     new = []
-    for i in range(_n_stacked(params)):
-        x, c = body(x, tree_index(params, i),
-                    None if cache is None else tree_index(cache, i))
+    for lp, lc in zip(layers, caches):
+        x, c = remat_call(body, x, lp, lc, remat=remat)
         new.append(c)
     return x, (None if cache is None else tree_stack(new))
 
@@ -234,8 +260,9 @@ def head_logits(p, cfg: ArchConfig, x):
     return x @ p["head"].to(x.dtype)
 
 
-def dense_forward(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """(B, S) int tokens -> (B, S, V) logits."""
+def dense_forward(p, cfg: ArchConfig, tokens: torch.Tensor,
+                  remat: bool = True) -> torch.Tensor:
+    """(B, S) int tokens -> (B, S, V) logits.  Loop over layers + remat."""
     x = embed_tokens(p, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
 
@@ -243,7 +270,7 @@ def dense_forward(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
         return block_apply(layer_p, cfg, x, positions=positions,
                            window=cfg.sliding_window)
 
-    x, _ = scan_layers(body, x, p["blocks"])
+    x, _ = scan_layers(body, x, p["blocks"], remat=remat)
     x = norm_apply(cfg, p["ln_f"], x)
     return head_logits(p, cfg, x)
 

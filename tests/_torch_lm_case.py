@@ -133,3 +133,22 @@ def check_fp32_forward(arch, monkeypatch, tol=1e-5):
     print(arch, f"fp32 forward {err:.3e}")
     assert err <= tol, err
     return err
+
+
+def leaf_err(got, ref) -> float:
+    """max |got - ref| over max |ref| of one leaf (a grad)."""
+    got = f32(got)
+    ref = np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    assert np.isfinite(got).all()
+    return float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-30))
+
+
+def port_value_and_grad(model, params, batch):
+    """(loss, grads tree) of the port's ``model.loss`` on the CPU, as its
+    Trainer takes them."""
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainConfig, Trainer
+
+    return Trainer(model, AdamW(), TrainConfig(),
+                   device="cpu").value_and_grad(params, batch)

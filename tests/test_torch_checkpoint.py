@@ -9,6 +9,7 @@ tests/test_checkpoint.py).  Tensor leaves are saved from the CPU copy.
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,3 +120,68 @@ def test_incomplete_step_dirs_invisible(tmp_path):
                                                            dtype=np.float32))
     # the JAX package sees the same single step
     assert JaxCheckpointManager(str(tmp_path), keep=5).all_steps() == [1]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_bf16_moment_checkpoints_restore_bitwise_across_packages(writer,
+                                                                 tmp_path):
+    """A trainer's ``(params, OptState, residual)`` with bf16 moments: a
+    bf16 leaf is written as the JAX manager writes it (2-byte records,
+    descr ``'<V2'``), comes back as a bf16 tensor in the port and as the
+    same 2-byte records in the JAX package, bit for bit both ways."""
+    from repro.optim import OptState as JaxOptState
+    from repro_torch.optim import OptState
+
+    rng = np.random.default_rng(29)
+    p = {"w": RNG.standard_normal((4, 6)).astype(np.float32),
+         "b": {"c": RNG.standard_normal(5).astype(np.float32)}}
+    m = {k: v for k, v in (("w", rng.standard_normal((4, 6))),
+                           ("b", {"c": rng.standard_normal(5)}))}
+
+    def jax_tree():
+        bf = lambda t: jax.tree.map(  # noqa: E731
+            lambda a: jnp.asarray(np.float32(a)).astype(jnp.bfloat16), t)
+        return (jax.tree.map(jnp.asarray, p),
+                JaxOptState(step=jnp.int32(3), mu=bf(m),
+                            nu=bf(jax.tree.map(np.abs, m))),
+                jax.tree.map(lambda a: jnp.zeros((), jnp.float32), p))
+
+    def port_tree():
+        bf = lambda t: jax.tree.map(  # noqa: E731
+            lambda a: torch.from_numpy(np.float32(a)).to(torch.bfloat16), t)
+        return ({"w": torch.from_numpy(p["w"]),
+                 "b": {"c": torch.from_numpy(p["b"]["c"])}},
+                OptState(step=torch.tensor(3, dtype=torch.int32), mu=bf(m),
+                         nu=bf(jax.tree.map(np.abs, m))),
+                {"w": torch.zeros(()), "b": {"c": torch.zeros(())}})
+
+    def bits(leaf):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.dtype == torch.bfloat16:
+                return leaf.view(torch.int16).numpy().view(np.uint16)
+            return leaf.numpy()
+        a = np.asarray(leaf)
+        return a.view(np.uint16) if a.dtype.itemsize == 2 else a
+
+    jt, tt = jax_tree(), port_tree()
+    for a, b in zip(jax.tree.leaves(jt), jax.tree.leaves(tt)):
+        np.testing.assert_array_equal(bits(a), bits(b))
+    if writer == "jax":
+        JaxCheckpointManager(str(tmp_path)).save(3, jt)
+        restored, meta = CheckpointManager(str(tmp_path)).restore(tt)
+        assert isinstance(restored[1], OptState)
+        assert restored[1].mu["w"].dtype == torch.bfloat16
+        ref = jt
+    else:
+        CheckpointManager(str(tmp_path)).save(3, tt)
+        restored, meta = JaxCheckpointManager(str(tmp_path)).restore(jt)
+        assert restored[1].mu["w"].dtype.str == "|V2"
+        ref = tt
+    assert meta["step"] == 3 and meta["n_leaves"] == 9
+    got, want = jax.tree.leaves(restored), jax.tree.leaves(ref)
+    assert len(got) == len(want) == 9
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(bits(a), bits(b))
+    with np.load(tmp_path / "step_00000003" / "arrays.npz") as z:
+        # a tuple at the top gives keys with a leading "/", in both packages
+        assert z["/1/1/w"].dtype.str == "|V2" and z["/1/0"].dtype == np.int32

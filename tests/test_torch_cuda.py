@@ -575,3 +575,137 @@ def test_lm_smoke_model_on_the_card_equals_the_cpu(dev, arch):
     toks = greedy_generate(model, dev_p, dev_b, 4, S + 4)
     assert toks.shape == (B, 4) and toks.device.type == "cuda"
     assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+
+
+def _train_data(cfg, B=2, S=32):
+    from repro_torch.data import DataSpec, SyntheticLM
+    from repro_torch.launch.train import StubData
+
+    return StubData(SyntheticLM(DataSpec(vocab=cfg.vocab, seq_len=S,
+                                         global_batch=B)), cfg)
+
+
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_smoke_model_trains_on_the_card_as_on_the_cpu(dev, arch):
+    """Two Trainer steps (AdamW, remat, 2 microbatches) from one set of
+    CPU-drawn weights: losses on the card within 5e-2 of the CPU's, and
+    params within 5e-2 of each leaf's max |value| at init.  A leaf that
+    starts at zero (mamba's ``A_log``, ``dt_bias``, ``conv_b``, the VLM's
+    gates) holds only its two updates, and Adam's first two steps move
+    an element by at most ``lr`` each (weight decay aside) whatever its
+    grad's size, so where a near-zero grad's sign differs between the
+    devices the two may differ by ``2 lr`` a step: such a leaf is held to
+    ``4 lr`` (and 1 % for the decay) over the two steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    cpu_p = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    data = _train_data(cfg, B=4)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=2)
+    out = {}
+    for d in ("cpu", dev):
+        tr = Trainer(model, opt, TrainConfig(steps=2, microbatches=2),
+                     device=d)
+        params = tree_map(lambda t: t.clone().to(d), cpu_p)
+        st = opt.init(params)
+        res = tree_map(lambda t: torch.zeros((), device=d), params)
+        losses = []
+        for step in range(2):
+            batch = {k: torch.as_tensor(v).to(d)
+                     for k, v in data.batch(step).items()}
+            params, st, res, loss = tr.step(params, st, res, batch)
+            losses.append(float(loss))
+        assert tree_leaves(params)[0].device.type == torch.device(d).type
+        out[str(d)] = (losses, [t.cpu() for t in tree_leaves(params)])
+    (l_cpu, p_cpu), (l_dev, p_dev) = out["cpu"], out[str(dev)]
+    assert np.isfinite(l_dev).all()
+    for a, b in zip(l_dev, l_cpu):
+        assert abs(a - b) <= 5e-2 * abs(b), (arch, l_dev, l_cpu)
+    for a, b, p0 in zip(p_dev, p_cpu, tree_leaves(cpu_p)):
+        scale = float(p0.abs().max())
+        bound = 5e-2 * scale if scale > 0 else 4.04 * opt.lr
+        err = float((a - b).abs().max())
+        assert err <= bound, (arch, err, bound)
+
+
+_RESUME_ON_THE_CARD = r"""
+import os, sys, tempfile
+import torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.data import DataSpec, SyntheticLM
+from repro_torch.models.api import build_model
+from repro_torch.models.transformer import tree_leaves
+from repro_torch.optim import AdamW
+from repro_torch.train import TrainConfig, Trainer
+
+torch.use_deterministic_algorithms(True)
+cfg = get_smoke_config("qwen3-0.6b")
+model = build_model(cfg)
+data = SyntheticLM(DataSpec(vocab=cfg.vocab, seq_len=64, global_batch=4))
+opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=6,
+            moment_dtype=torch.bfloat16)
+tmp = tempfile.mkdtemp()
+
+def train(ckpt_dir, steps, resume):
+    tc = TrainConfig(steps=steps, ckpt_every=3, ckpt_dir=ckpt_dir,
+                     log_every=100)
+    return Trainer(model, opt, tc).run(
+        torch.Generator(device="cuda").manual_seed(0), data, resume=resume)
+
+p_full, s_full, l_full = train(os.path.join(tmp, "a"), 6, False)
+train(os.path.join(tmp, "b"), 3, False)
+p_res, s_res, l_res = train(os.path.join(tmp, "b"), 6, True)
+a = tree_leaves({"p": p_full, "m": s_full.mu, "v": s_full.nu})
+b = tree_leaves({"p": p_res, "m": s_res.mu, "v": s_res.nu})
+assert a[0].device.type == "cuda" and s_res.mu["embed"].dtype == torch.bfloat16
+assert l_res == l_full[3:], (l_full, l_res)
+assert all(torch.equal(x, y) for x, y in zip(a, b))
+print("resumed bitwise")
+
+# the MoE backward (capacity dispatch's index_add_, the combine's gather)
+# under deterministic algorithms: two runs give the same bits
+cfg = get_smoke_config("mixtral-8x7b")
+model = build_model(cfg)
+data = SyntheticLM(DataSpec(vocab=cfg.vocab, seq_len=64, global_batch=4))
+runs = [Trainer(model, opt, TrainConfig(steps=2, microbatches=2)).run(
+    torch.Generator(device="cuda").manual_seed(0), data) for _ in range(2)]
+assert runs[0][2] == runs[1][2]
+assert all(torch.equal(x, y) for x, y in zip(tree_leaves(runs[0][0]),
+                                             tree_leaves(runs[1][0])))
+print("moe deterministic")
+"""
+
+
+def test_lm_training_resumes_bitwise_on_the_card(dev):
+    """qwen3's smoke model, bf16 moments: 6 steps against 3, a checkpoint,
+    a restore and 3 more, on the card under deterministic algorithms (in
+    a fresh process: cuBLAS reads ``CUBLAS_WORKSPACE_CONFIG`` when CUDA
+    starts); mixtral's smoke model trained twice there gives the same
+    bits."""
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, "-c", _RESUME_ON_THE_CARD], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert "resumed bitwise" in out.stdout, out.stderr[-3000:]
+    assert "moe deterministic" in out.stdout, out.stderr[-3000:]
+
+
+def test_train_cli_on_the_card(dev, capsys):
+    from repro_torch.launch import train as train_cli
+
+    losses = train_cli.main(["--arch", "qwen3-0.6b", "--smoke", "--steps",
+                             "20"])
+    out = capsys.readouterr().out
+    assert len(losses) == 20 and np.isfinite(losses).all()
+    assert "first-10-mean" in out and "last-10-mean" in out
+    assert np.mean(losses[-2:]) < np.mean(losses[:2])

@@ -46,7 +46,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models", "repro_torch.models.layers",
             "repro_torch.models.transformer", "repro_torch.models.moe",
             "repro_torch.models.mamba2", "repro_torch.models.api",
-            "repro_torch.models.convert", "repro_torch.serve.decode"} \
+            "repro_torch.models.convert", "repro_torch.serve.decode",
+            "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.train", "repro_torch.train.loop",
+            "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} \
         <= set(names)
     code = (
         "import importlib, sys\n"
