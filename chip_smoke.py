@@ -122,20 +122,22 @@ Phases, none of them caught — any failure exits non-zero:
    warmup 1): every loss finite, the mean of the last 5 below the mean of
    the first 5 minus 0.2 (tests/test_train_loop.py:22); then one step of
    4 microbatches against one of 1 from the trained params (fresh
-   moments, lr 1e-3, no clipping), params within 3e-3 absolute
+   moments, lr 1e-3, no clipping): the grads it applies within 5e-2 of
+   each leaf's max, and the params after it within 3e-3 absolute
    (tests/test_train_loop.py:27-44).  Records step ms (CUDA events, the
    first step apart), tokens/s, the device peak and the step's FLOP
    bound at the data-sheet bf16 dense rate.  (b) mamba2-130m whole: 6
    steps straight against 3, a checkpoint, a restore and 3 more
    (``ckpt_every=3`` under ``chiprun_out/``, deleted after), every leaf
-   bitwise equal, under ``torch.use_deterministic_algorithms`` (the
-   process sets ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts); 20 steps
-   with bf16 gradient compression converge (tests/test_train_loop.py:
-   61-70); seconds per save and restore.  (c) mixtral-8x7b with
-   ``n_layers`` cut to 1 (params, grads and two fp32 moments are 27 GB a
-   layer): 3 steps, losses finite, the router's aux loss non-zero, every
-   param leaf moved; step ms and the device peak.  No kernel of
-   ``repro_torch.kernels`` launches.
+   bitwise equal, under ``torch.use_deterministic_algorithms``, in a
+   process of its own started with ``CUBLAS_WORKSPACE_CONFIG`` set; 20
+   steps with bf16 gradient compression converge
+   (tests/test_train_loop.py:61-70); seconds per save and restore.  (c)
+   mixtral-8x7b with ``n_layers`` cut to 1 (params, grads and two fp32
+   moments are 27 GB a layer): 3 steps, losses finite, the router's aux
+   loss non-zero, every param leaf moved from the Trainer's initial
+   weights (copied to the host); step ms and the device peak.  No kernel
+   of ``repro_torch.kernels`` launches.
 
 Every phase records the host's RAM peak (``MemTotal - MemAvailable``,
 sampled every 0.2 s).  The line before the last is the card's name and
@@ -165,9 +167,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-# deterministic cuBLAS for the lm_train phase's bitwise resume; read when
-# CUDA starts, so set before anything touches the card
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -257,10 +256,14 @@ LM_MODELS = (("qwen3-0.6b", None), ("mamba2-130m", None),
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_SEED = 20251017
 LM_PREFILL_TOL, LM_DECODE_TOL = 1e-3, 5e-2   # tests/test_models.py:61, :73
-# the lm_train phase: 4 x 2048 tokens a step; the microbatch gate's bound
-# (tests/test_train_loop.py:44); the H100 SXM data sheet's bf16 dense rate
+# the lm_train phase: 4 x 2048 tokens a step; the microbatch gate's bounds
+# on the params after the step (tests/test_train_loop.py:44) and on the
+# grads it applies, per leaf over the leaf's max (the bf16 tolerance of
+# tests/test_torch_lm_grads.py); the H100 SXM data sheet's bf16 dense rate
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 2048, 20
-LM_MICROBATCH_ATOL = 3e-3
+LM_MICROBATCH_ATOL, LM_MICROBATCH_GRAD_TOL = 3e-3, 5e-2
+# cuBLAS's deterministic workspace, for the bitwise resume's own process
+LM_RESUME_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 BF16_FLOPS_PER_S = 989e12
 RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
@@ -1418,16 +1421,21 @@ def _leaves(tree) -> list:
     return out
 
 
-def device_kernel_ms(fn, top: int = 8) -> dict:
-    """One call of ``fn`` traced on the card alone (host-side op events
-    would slow a training step of ~50k launches several times over): the
-    device-busy ms (the union of its kernels' and copies' spans), the
-    number of spans, and the ``top`` kernels by summed device ms."""
+def device_kernel_ms(fn, top: int = 8, host: bool = False) -> dict:
+    """One call of ``fn`` traced: the device-busy ms (the union of its
+    kernels' and copies' spans), the number of spans, and the ``top``
+    kernels by summed device ms.  ``host`` traces the host's op events
+    too (the lm_serve yardstick); without them the card alone is traced,
+    since host events would slow a training step of ~50k launches
+    several times over."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     spans, by_name = [], {}
@@ -1535,7 +1543,7 @@ def lm_serve_one(arch: str, n_layers) -> dict:
         state["pos"] += 1
 
     rec["decode_ms_per_step"] = cuda_ms(one_step, 8)
-    busy = device_kernel_ms(one_step)["busy_ms"]
+    busy = device_kernel_ms(one_step, host=True)["busy_ms"]
     rec["decode_device_busy_ms"] = busy
     rec["decode_device_busy_share"] = (
         None if busy is None else busy / rec["decode_ms_per_step"])
@@ -1687,7 +1695,8 @@ def lm_train_qwen3() -> dict:
     rec["bound_ms"] = max(rec["flop_bound_ms"], rec["optimizer_byte_bound_ms"])
 
     # one more step, 4 microbatches against 1, from the trained params
-    # with fresh moments (the JAX test's lr 1e-3, no clipping, step 1)
+    # with fresh moments (the JAX test's lr 1e-3, no clipping, step 1):
+    # the grads the step applies, then the params after it
     del opt_state
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in data.batch(LM_TRAIN_STEPS).items()}
@@ -1696,37 +1705,51 @@ def lm_train_qwen3() -> dict:
     for m in (1, 4):
         mt = Trainer(model, opt, TrainConfig(steps=1, microbatches=m),
                      donate=False)
-        res = tree_map(lambda p: torch.zeros((), device=p.device), params)
-        state = opt.init(params)
+
+        def one_step(m=m, mt=mt):
+            # Trainer.step's work without compression: grads, then AdamW
+            loss, g = mt.grads(params, batch)
+            out[m] = (float(loss), g,
+                      opt.update(g, opt.init(params), params)[0])
+
         if m == 1:
             # the same work as a training step, traced on the card
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rec["step_profile"] = device_kernel_ms(
-                lambda: out.update({1: mt.step(params, state, res, batch)[0]}))
+            rec["step_profile"] = device_kernel_ms(one_step)
             rec["profiled_step_wall_ms"] = (time.perf_counter() - t0) * 1e3
         else:
-            out[m] = mt.step(params, state, res, batch)[0]
+            one_step()
+    grad_errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(tree_leaves(out[4][1]), tree_leaves(out[1][1]))]
     err = max(float((a - b).abs().max()) for a, b in
-              zip(tree_leaves(out[1]), tree_leaves(out[4])))
-    rec["microbatch_max_abs_diff"] = err
-    check(err <= LM_MICROBATCH_ATOL, "microbatches 4 vs 1", err)
+              zip(tree_leaves(out[1][2]), tree_leaves(out[4][2])))
+    rec.update(microbatch_loss=[out[1][0], out[4][0]],
+               microbatch_grad_max_rel=max(grad_errs),
+               microbatch_grad_median_rel=float(np.median(grad_errs)),
+               microbatch_max_abs_diff=err)
+    check(bool(np.isfinite(grad_errs).all())
+          and max(grad_errs) <= LM_MICROBATCH_GRAD_TOL,
+          "microbatches 4 vs 1, grads", max(grad_errs))
+    check(err <= LM_MICROBATCH_ATOL, "microbatches 4 vs 1, params", err)
     del out, params
     torch.cuda.empty_cache()
     return rec
 
 
-def lm_train_mamba2(out_dir: str) -> dict:
-    """(b) mamba2-130m whole: bitwise resume under deterministic
-    algorithms; bf16 gradient compression converges."""
+def lm_train_mamba2_resume(out_dir: str) -> dict:
+    """(b) mamba2-130m whole: 6 steps straight against 3, a checkpoint, a
+    restore and 3 more, every leaf bitwise equal, under deterministic
+    algorithms.  Run in a process of its own that has
+    ``LM_RESUME_ENV`` set before CUDA starts (cuBLAS reads it then)."""
+    for k, v in LM_RESUME_ENV.items():
+        check(os.environ.get(k) == v, k, os.environ.get(k))
     cfg = get_config("mamba2-130m")
     model = build_model(cfg)
     data = lm_train_data(cfg)
     opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=6)
     ckpt_dir = os.path.join(out_dir, "lm_train_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    rec = {"arch": "mamba2-130m", "n_layers": cfg.n_layers,
-           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ}
 
     def trainer(steps, ckpt):
         tr = Trainer(model, opt, TrainConfig(steps=steps, ckpt_every=3,
@@ -1735,7 +1758,6 @@ def lm_train_mamba2(out_dir: str) -> dict:
             tr.ckpt = TimedCheckpointManager(ckpt_dir, keep=3)
         return tr
 
-    torch.cuda.reset_peak_memory_stats()
     torch.use_deterministic_algorithms(True)
     try:
         p_full, st_full, l_full = trainer(6, False).run(lm_gen(), data)
@@ -1749,22 +1771,49 @@ def lm_train_mamba2(out_dir: str) -> dict:
     full = tree_leaves({"p": p_full, "mu": st_full.mu, "nu": st_full.nu})
     res = tree_leaves({"p": p_res, "mu": st_res.mu, "nu": st_res.nu})
     differ = sum(not torch.equal(a, b) for a, b in zip(full, res))
-    rec.update(losses_straight=l_full, losses_resumed=l_res,
+    rec = dict(losses_straight=l_full, losses_resumed=l_res,
                leaves=len(full), leaves_not_bitwise=differ,
                save_s=first.ckpt.save_s + second.ckpt.save_s,
                restore_s=second.ckpt.restore_s,
                checkpoint_gb=sum(t.numel() * t.element_size()
-                                 for t in full) / 1e9)
+                                 for t in full) / 1e9,
+               resume_max_memory_allocated_gb=(
+                   torch.cuda.max_memory_allocated() / 1e9))
     check(bool(np.isfinite(l_full).all()), "mamba2 losses", l_full)
     check(l_res == l_full[3:] and differ == 0
           and int(st_res.step) == int(st_full.step) == 6,
           "mamba2 resume not bitwise", differ, l_full, l_res)
-    del p_full, st_full, p_res, st_res, full, res
+    return rec
 
+
+def lm_train_mamba2(out_dir: str) -> dict:
+    """(b) mamba2-130m whole: the bitwise resume in a process of its own
+    (``lm_train_mamba2_resume``); bf16 gradient compression converges."""
+    cfg = get_config("mamba2-130m")
+    rec = {"arch": "mamba2-130m", "n_layers": cfg.n_layers,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ}
+    code = ("import json, sys, chip_smoke; print(json.dumps("
+            "chip_smoke.lm_train_mamba2_resume(sys.argv[1])))")
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run([sys.executable, "-c", code, out_dir], cwd=ROOT,
+                             env=dict(os.environ, **LM_RESUME_ENV),
+                             capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(os.path.join(out_dir, "lm_train_ckpt"),
+                      ignore_errors=True)
+    rec["resume_process_s"] = time.perf_counter() - t0
+    check(run.returncode == 0, "mamba2 resume process", run.returncode,
+          run.stderr[-3000:])
+    rec.update(json.loads(run.stdout.strip().splitlines()[-1]))
+
+    model = build_model(cfg)
+    data = lm_train_data(cfg)
     tr = Trainer(model, AdamW(lr=3e-3, warmup_steps=2, total_steps=20),
                  TrainConfig(steps=20, log_every=1000,
                              grad_compression="bf16"))
     timer = StepTimer(tr)
+    torch.cuda.reset_peak_memory_stats()
     _, _, losses = tr.run(lm_gen(), data)
     ms = timer.ms()
     rec.update(compression_losses=losses,
@@ -1788,40 +1837,47 @@ def lm_train_mixtral() -> dict:
     tr = Trainer(model, AdamW(lr=3e-4, warmup_steps=1, total_steps=3),
                  TrainConfig(steps=3, log_every=1000))
     timer = StepTimer(tr)
+    # the Trainer's own initial weights, copied to the host (off the
+    # card's peak) to see every leaf move
+    before = []
+    init_state = tr.init_state
+
+    def kept_init_state(generator):
+        state = init_state(generator)
+        before.extend(t.cpu() for t in tree_leaves(state[0]))
+        return state
+
+    tr.init_state = kept_init_state
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    # the run draws the same weights from the same seed: keep a copy to
-    # see every leaf move, and read the router's aux loss on step 0's batch
-    params0 = model.init_params(lm_gen())
-    with torch.no_grad():
-        batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
-        aux = float(model.forward(params0, batch)[1])
-    before = tree_leaves(params0)
-    del batch
     params, _, losses = tr.run(lm_gen(), data)
     ms = timer.ms()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the router's aux loss on step 0's batch, at the trained weights
+    with torch.no_grad():
+        batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+        aux = float(model.forward(params, batch)[1])
+    del batch
     after = tree_leaves(params)
-    unmoved = sum(torch.equal(a, b) for a, b in zip(before, after))
+    unmoved = sum(torch.equal(a, b.cuda()) for a, b in zip(after, before))
     rec = dict(arch="mixtral-8x7b", n_layers=cfg.n_layers,
                n_layers_published=full.n_layers, batch=LM_TRAIN_BATCH,
                seq=LM_TRAIN_SEQ, params=sum(t.numel() for t in after),
-               losses=losses, aux_step0=aux, leaves=len(after),
+               losses=losses, aux_step0_batch=aux, leaves=len(after),
                leaves_unmoved=unmoved, step_ms=ms,
                step_ms_mean=float(np.mean(ms[1:])),
-               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+               max_memory_allocated_gb=peak)
+    check(len(before) == len(after) > 0, "mixtral initial leaves", len(before))
     check(bool(np.isfinite(losses).all()), "mixtral losses", losses)
     check(aux != 0.0 and np.isfinite(aux), "mixtral aux loss", aux)
     check(unmoved == 0, "mixtral params that did not move", unmoved)
-    del before, after, params, params0
+    del before, after, params
     torch.cuda.empty_cache()
     return rec
 
 
 def phase_lm_train(out_dir: str) -> None:
     with phase("lm_train"):
-        check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8",
-              "CUBLAS_WORKSPACE_CONFIG", os.environ.get(
-                  "CUBLAS_WORKSPACE_CONFIG"))
         reset_counts()
         rec = {"qwen3": lm_train_qwen3()}
         q = rec["qwen3"]
@@ -1837,12 +1893,16 @@ def phase_lm_train(out_dir: str) -> None:
             f"{q['step_profile']['kernels']} kernels (a profiled step, "
             f"{q['profiled_step_wall_ms']:.1f} ms wall); device memory peak "
             f"{q['max_memory_allocated_gb']:.2f} GB; microbatches 4 vs 1: "
-            f"{q['microbatch_max_abs_diff']:.3e} abs")
+            f"grads {q['microbatch_grad_max_rel']:.3e} of a leaf's max "
+            f"(median leaf {q['microbatch_grad_median_rel']:.3e}), loss "
+            f"{q['microbatch_loss'][1]:.6f} vs {q['microbatch_loss'][0]:.6f}, "
+            f"params {q['microbatch_max_abs_diff']:.3e} abs")
         for name, ms in q["step_profile"]["top"]:
             log(f"  qwen3 step, device ms {ms:9.2f}  {name}")
         m = rec["mamba2"] = lm_train_mamba2(out_dir)
         log(f"lm_train mamba2-130m (full width): resume after step 3 "
-            f"bitwise ({m['leaves']} leaves, deterministic algorithms); "
+            f"bitwise ({m['leaves']} leaves, deterministic algorithms, in "
+            f"its own process, {m['resume_process_s']:.1f} s); "
             f"checkpoint {m['checkpoint_gb']:.2f} GB, save "
             f"{', '.join(f'{s:.2f}' for s in m['save_s'])} s, restore "
             f"{', '.join(f'{s:.2f}' for s in m['restore_s'])} s; bf16 "
@@ -1854,7 +1914,8 @@ def phase_lm_train(out_dir: str) -> None:
             f"{x['n_layers']} of {x['n_layers_published']}; "
             f"{x['params'] / 1e9:.2f} B params): losses "
             f"{', '.join(f'{v:.4f}' for v in x['losses'])}, aux "
-            f"{x['aux_step0']:.4f}, {x['leaves']} leaves all moved; step "
+            f"{x['aux_step0_batch']:.4f} (step 0's batch, trained weights), "
+            f"{x['leaves']} leaves all moved; step "
             f"{x['step_ms_mean']:.1f} ms; device memory peak "
             f"{x['max_memory_allocated_gb']:.2f} GB")
         launched = counts()

@@ -110,26 +110,29 @@ class Trainer:
             grads = iter(torch.autograd.grad(loss, leaves))
         return loss.detach(), tree_map(lambda _: next(grads), live)
 
+    def grads(self, params, batch):
+        """(loss, grads) that one step applies, before compression: with
+        ``microbatches > 1`` the microbatches' grads summed in order into
+        fp32 zeros, then loss and grads divided by their count."""
+        M = self.tc.microbatches
+        if M == 1:
+            return self.value_and_grad(params, batch)
+        g = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+        loss = 0.0
+        for i in range(M):
+            mb = {k: v[i * (v.shape[0] // M):(i + 1) * (v.shape[0] // M)]
+                  for k, v in batch.items()}
+            li, gi = self.value_and_grad(params, mb)
+            tree_map(torch.Tensor.add_, g, gi)
+            loss = loss + li
+            del gi    # freed before the next microbatch's backward
+        return loss / M, tree_map(lambda x: x / M, g)
+
     def step(self, params, opt_state: OptState, residual, batch):
         """One training step: ``(params, opt_state, residual, loss)``."""
         tc = self.tc
-        if tc.microbatches > 1:
-            M = tc.microbatches
-            g = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
-            loss = 0.0
-            for i in range(M):
-                mb = {k: v[i * (v.shape[0] // M):(i + 1) * (v.shape[0] // M)]
-                      for k, v in batch.items()}
-                li, gi = self.value_and_grad(params, mb)
-                tree_map(torch.Tensor.add_, g, gi)
-                loss = loss + li
-                del gi    # freed before the next microbatch's backward
-            g = tree_map(lambda x: x / M, g)
-            loss = loss / M
-        else:
-            loss, g = self.value_and_grad(params, batch)
-
+        loss, g = self.grads(params, batch)
         g, new_res = compress_grads(g, residual, tc.grad_compression)
         if self.donate and tc.grad_compression != "none":
             tree_map(torch.Tensor.copy_, residual, new_res)

@@ -633,6 +633,83 @@ def test_lm_smoke_model_trains_on_the_card_as_on_the_cpu(dev, arch):
         assert err <= bound, (arch, err, bound)
 
 
+class _Fp32Stub:
+    """An image or frame stub that the model's inline bf16 cast
+    (``.to(torch.bfloat16)``) hands back in fp32."""
+
+    def __init__(self, tensor):
+        self.tensor = tensor
+
+    def to(self, dtype):
+        return self.tensor
+
+    def __getattr__(self, name):
+        return getattr(self.tensor, name)
+
+
+def _leaf_err(got, ref):
+    """max |got - ref| over max |ref| of one leaf (a grad)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert torch.isfinite(got).all()
+    return float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
+
+
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_smoke_model_grads_on_the_card_match_the_cpu(dev, arch,
+                                                         monkeypatch):
+    """The loss's grads before any optimizer step, from one set of
+    CPU-drawn weights.  In fp32 (the embedding's bf16 cast swapped out,
+    the stubs kept in fp32) the card's within 1e-4 of the CPU's per leaf,
+    relative to the leaf's max.  In bf16 within 5e-2 (the JAX package's
+    bf16 tolerance), or, on a leaf where the CPU's own bf16 grad lies
+    further than that from its fp32 grad, within twice that distance, as
+    tests/test_torch_lm_grads.py holds the CPU against JAX."""
+    import repro_torch.models.api as api
+    import repro_torch.models.transformer as tr_mod
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_smoke_config(arch)
+    model = api.build_model(cfg)
+    cpu_p = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    batch = _train_data(cfg, B=4).batch(0)
+    grads = {}
+    for mode in ("bf16", "fp32"):
+        if mode == "fp32":
+            def fp32_embed(p, tokens):
+                return p["embed"][tokens]
+
+            monkeypatch.setattr(api, "_embed_tokens", fp32_embed)
+            monkeypatch.setattr(tr_mod, "embed_tokens", fp32_embed)
+        for d in ("cpu", dev):
+            b = {k: torch.as_tensor(v).to(d) for k, v in batch.items()}
+            if mode == "fp32":
+                b = {k: (_Fp32Stub(v.float()) if k in ("images", "frames")
+                         else v) for k, v in b.items()}
+                assert model.forward(tree_map(lambda t: t.to(d), cpu_p),
+                                     b)[0].dtype == torch.float32
+            tr = Trainer(model, AdamW(), TrainConfig(), device=d)
+            loss, g = tr.value_and_grad(
+                tree_map(lambda t: t.clone().to(d), cpu_p), b)
+            grads[mode, str(d)] = (float(loss), tree_leaves(g))
+    card = str(dev)
+    for mode, tol in (("fp32", 1e-4), ("bf16", 5e-2)):
+        (l_cpu, g_cpu), (l_dev, g_dev) = grads[mode, "cpu"], grads[mode, card]
+        assert abs(l_dev - l_cpu) <= tol * abs(l_cpu), (arch, mode, l_dev, l_cpu)
+        assert g_dev[0].device.type == "cuda"
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(g_dev, g_cpu)):
+            bound = tol
+            if mode == "bf16":
+                bound = max(tol, 2 * _leaf_err(b, grads["fp32", "cpu"][1][i]))
+            err = _leaf_err(a, b)
+            assert err <= bound, (arch, mode, i, err, bound)
+            worst = max(worst, err)
+        print(arch, mode, f"grads card vs cpu, worst leaf {worst:.3e}")
+
+
 _RESUME_ON_THE_CARD = r"""
 import os, sys, tempfile
 import torch

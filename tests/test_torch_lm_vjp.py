@@ -1,12 +1,13 @@
 """The port's LM gradients in fp32 against the JAX package's, and remat.
 
 Per function (``jax.vjp`` against ``torch.autograd.grad`` with the same
-numpy-seeded cotangents): ``block_apply``, ``chunked_attention`` (ragged
-chunks, a window, an offset), ``moe_apply`` with dropped tokens and the
-SSD scan with a state, within 1e-4 of each input's max |grad|.  The
-MoE, SSM and hybrid smoke models' loss grads in fp32 (the embedding's
-bf16 cast swapped out, as ``check_fp32_forward`` does), within 1e-4 per
-leaf.  Remat changes no bit: grads with and without it are equal, and
+numpy-seeded cotangents): ``block_apply``, the VLM's gated cross block,
+``chunked_attention`` (ragged chunks, a window, an offset), ``moe_apply``
+with dropped tokens and the SSD scan with a state, within 1e-4 of each
+input's max |grad|.  The MoE, SSM, hybrid and VLM smoke models' loss
+grads in fp32 (the embedding's bf16 cast swapped out, as
+``check_fp32_forward`` does; the VLM's images kept in fp32 and its gates
+non-zero), within 1e-4 per leaf.  Remat changes no bit: grads with and without it are equal, and
 under ``torch.no_grad`` (or with no param requiring grad, as on the
 serve path) no checkpoint runs and the logits equal ``remat=False``'s.
 """
@@ -42,8 +43,36 @@ def _normal(rng, *shape, scale=1.0):
 
 # ------------------------------------------------------------ whole models
 
+class _Fp32Images:
+    """The VLM's image stub kept in fp32: both packages cast
+    ``batch["images"]`` to bf16 inline (``astype`` in JAX, ``to`` in the
+    port), and this stand-in hands back the fp32 array to either."""
+
+    def __init__(self, array):
+        self.array = array
+
+    def astype(self, dtype):
+        return self.array
+
+    to = astype
+
+
+def _vlm_in_fp32(jp, tp, jb, tb):
+    """fp32 images, and the cross blocks' tanh gates at seeded non-zero
+    values in both packages (at init they are zero, which leaves the
+    cross attention and its MLP without a grad)."""
+    jb["images"] = _Fp32Images(jb["images"].astype(jnp.float32))
+    tb["images"] = _Fp32Images(tb["images"].float())
+    rng = np.random.default_rng(5)
+    for gate in ("gate_attn", "gate_mlp"):
+        g = rng.uniform(0.3, 1.0, jp["cross"][gate].shape).astype(np.float32)
+        jp["cross"][gate] = jnp.asarray(g)
+        tp["cross"][gate] = torch.from_numpy(g)
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
-                                  "mamba2-130m", "zamba2-2.7b"])
+                                  "mamba2-130m", "zamba2-2.7b",
+                                  "llama-3.2-vision-90b"])
 def test_moe_ssm_hybrid_grads_match_jax_in_fp32(arch, monkeypatch):
     import repro.models.api as jax_api
     import repro_torch.models.api as torch_api
@@ -55,12 +84,16 @@ def test_moe_ssm_hybrid_grads_match_jax_in_fp32(arch, monkeypatch):
     monkeypatch.setattr(torch_api, "_embed_tokens", fp32_embed)
     jm, jp, tm, tp = models(arch)
     jb, tb = make_batches(jm.cfg)
-    jloss, jg = jax.jit(jax.value_and_grad(jm.loss))(jp, jb)
+    if jm.cfg.family == "vlm":
+        _vlm_in_fp32(jp, tp, jb, tb)
+    jloss, jg = jax.jit(jax.value_and_grad(lambda p: jm.loss(p, jb)))(jp)
     tloss, tg = port_value_and_grad(tm, tp, tb)
     assert abs(float(tloss) - float(jloss)) <= 1e-5 * abs(float(jloss))
     errs = [leaf_err(t, j) for t, j in zip(tree_leaves(tg),
                                            jax.tree.leaves(jg))]
     assert len(errs) == len(jax.tree.leaves(jg))
+    assert all(float(np.abs(np.asarray(j)).max()) > 0
+               for j in jax.tree.leaves(jg)), "a leaf without a grad"
     print(arch, f"fp32 worst leaf {max(errs):.3e}")
     assert max(errs) <= FP32_TOL, errs
 
@@ -98,6 +131,25 @@ def test_block_apply_vjp():
     x = _normal(np.random.default_rng(31), 2, 37, jcfg.d_model)
     _check_vjp(lambda p, x: jtr.block_apply(p, jcfg, x)[0],
                lambda p, x: ttr.block_apply(p, cfg, x)[0], (p, x), 32)
+
+
+def test_cross_block_apply_vjp():
+    """The VLM's gated cross-attention block with its images as kv, the
+    gates at non-zero values."""
+    import repro.models.api as jax_api
+    import repro_torch.models.api as torch_api
+
+    jcfg = jax_smoke_config("llama-3.2-vision-90b")
+    cfg = get_smoke_config("llama-3.2-vision-90b")
+    p = jax.tree.map(np.asarray,
+                     jax_api._cross_block_init(jax.random.PRNGKey(4), jcfg))
+    p["gate_attn"], p["gate_mlp"] = np.float32(0.6), np.float32(-0.8)
+    rng = np.random.default_rng(44)
+    x = _normal(rng, 2, 21, jcfg.d_model)
+    img = _normal(rng, 2, 9, jcfg.d_model)
+    _check_vjp(lambda p, x, i: jax_api._cross_block_apply(p, jcfg, x, kv_x=i)[0],
+               lambda p, x, i: torch_api._cross_block_apply(p, cfg, x, kv_x=i)[0],
+               (p, x, img), 45)
 
 
 @pytest.mark.parametrize("Sq,Sk,causal,window,q_offset", [

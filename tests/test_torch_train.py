@@ -12,8 +12,10 @@
   ``tests/test_checkpoint.py::test_bitwise_resume``,
   ``tests/test_system.py::test_tiny_lm_end_to_end``).
 * One Trainer step of mixtral's smoke model in fp32 from JAX's weights vs
-  the JAX ``Trainer._step_fn``: loss within 1e-5, params within 3e-3
-  absolute (the JAX microbatch test's bound).
+  the JAX ``Trainer._step_fn``, with int8 grads and without: loss within
+  1e-5, params within 3e-3 absolute (the JAX microbatch test's bound),
+  and Adam's moments, which carry the step's grads, within 1e-5 of each
+  leaf's max.
 * ``donate=True`` and ``donate=False`` give the same bits; the train CLI
   runs on the CPU; with no card the Trainer refuses rather than running
   on the CPU.
@@ -253,6 +255,26 @@ def test_microbatch_equivalence():
                                    rtol=0, atol=3e-3)
 
 
+def test_microbatch_grads_are_the_whole_batch_grads(monkeypatch):
+    """What a step applies: 4 microbatches' grads, summed and divided by
+    4, within 1e-5 of each leaf's max of the whole batch's, in fp32 (the
+    embedding's bf16 cast swapped out)."""
+    import repro_torch.models.api as torch_api
+
+    monkeypatch.setattr(torch_api, "_embed_tokens",
+                        lambda p, tokens: p["embed"][tokens])
+    cfg = get_smoke_config("mamba2-130m")
+    model = build_model(cfg)
+    data = SyntheticLM(DataSpec(vocab=cfg.vocab, seq_len=16, global_batch=8))
+    batch = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
+    params = model.init_params(_gen(), device=CPU)
+    out = {m: Trainer(model, AdamW(), TrainConfig(microbatches=m),
+                      device=CPU).grads(params, batch) for m in (1, 4)}
+    assert abs(float(out[4][0]) - float(out[1][0])) <= 1e-6 * float(out[1][0])
+    for a, b in zip(tree_leaves(out[4][1]), tree_leaves(out[1][1])):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
 def test_grad_compression_error_feedback():
     g = {"w": torch.from_numpy((np.random.default_rng(0).standard_normal(
         (64, 64)) * 1e-3).astype(np.float32))}
@@ -345,9 +367,11 @@ def test_tiny_lm_end_to_end():
 
 # ------------------------------------------------------- one step vs JAX
 
-def test_one_trainer_step_matches_jax_in_fp32(monkeypatch):
-    """mixtral's smoke model (MoE, aux loss), fp32 (the embedding's bf16
-    cast swapped out in both packages), 2 microbatches and int8 grads."""
+def _fp32_step_vs_jax(monkeypatch, grad_compression, **opt):
+    """One Trainer step of mixtral's smoke model (MoE, aux loss) in fp32
+    (the embedding's bf16 cast swapped out in both packages), 2
+    microbatches, from JAX's weights: the port's and ``_step_fn``'s
+    (params, state, residual, loss)."""
     import repro.models.api as jax_api
     import repro_torch.models.api as torch_api
 
@@ -358,18 +382,63 @@ def test_one_trainer_step_matches_jax_in_fp32(monkeypatch):
     monkeypatch.setattr(torch_api, "_embed_tokens", fp32_embed)
     jm, jp, tm, tp = models("mixtral-8x7b")
     jb, tb = make_batches(jm.cfg, B=4)
-    kw = dict(lr=1e-3, warmup_steps=1, total_steps=4)
-    tc = dict(steps=1, microbatches=2, grad_compression="int8")
+    kw = dict(lr=1e-3, warmup_steps=1, total_steps=4, **opt)
+    tc = dict(steps=1, microbatches=2, grad_compression=grad_compression)
     jtr = JTrainer(jm, JAdamW(**kw), JTrainConfig(**tc), donate=False)
     ttr = Trainer(tm, AdamW(**kw), TrainConfig(**tc), device=CPU)
     jres = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), jp)
     tres = tree_map(lambda p: torch.zeros(p.shape), tp)
-    jp1, jst, _, jloss = jtr._step_fn(jp, jtr.opt.init(jp), jres, jb)
-    tp1, tst, _, tloss = ttr.step(tp, ttr.opt.init(tp), tres, tb)
-    assert abs(float(tloss) - float(jloss)) <= 1e-5 * abs(float(jloss))
-    assert int(tst.step) == int(jst.step) == 1
+    jout = jtr._step_fn(jp, jtr.opt.init(jp), jres, jb)
+    tout = ttr.step(tp, ttr.opt.init(tp), tres, tb)
+    assert int(tout[1].step) == int(jout[1].step) == 1
+    assert abs(float(tout[3]) - float(jout[3])) <= 1e-5 * abs(float(jout[3]))
+    return tout, jout
+
+
+def _hold_moments(tst, jst, int8_ties=False):
+    """After one step ``mu = (1 - b1)·g`` and ``nu = (1 - b2)·g²`` of the
+    step's (accumulated, compressed, clipped) grads ``g``: they carry the
+    gradient that Adam's first, sign-like update of the params hides.
+    Each is held per leaf within 1e-5 of the leaf's max.  Under int8
+    compression an element whose grad lies within roundoff of a rounding
+    tie may round to the next int8 step in one package; such an element
+    differs by that step (the leaf's max |mu| / 127) and is counted (at
+    most one in a thousand of a leaf), not held.  Returns the count."""
+    ties = 0
+    for mt, mj, vt, vj in zip(tree_leaves(tst.mu), jax.tree.leaves(jst.mu),
+                              tree_leaves(tst.nu), jax.tree.leaves(jst.nu)):
+        mt, mj, vt, vj = mt.numpy(), np.asarray(mj), vt.numpy(), np.asarray(vj)
+        top = float(np.abs(mj).max())
+        d = np.abs(mt - mj)
+        tie = (np.abs(d - top / 127) <= 1e-3 * top / 127) if int8_ties \
+            else np.zeros(d.shape, bool)
+        assert (d[~tie] <= 1e-5 * top).all(), float(d[~tie].max() / top)
+        assert tie.sum() <= max(1, tie.size // 1000), (tie.sum(), tie.size)
+        ties += int(tie.sum())
+        dv = np.abs(vt - vj)[~tie]
+        assert (dv <= 1e-5 * float(np.abs(vj).max())).all(), \
+            float(dv.max() / np.abs(vj).max())
+    return ties
+
+
+def test_one_trainer_step_matches_jax_in_fp32(monkeypatch):
+    """2 microbatches and int8 grads: loss within 1e-5, params within
+    3e-3 absolute (the JAX microbatch test's bound, which a first Adam
+    step meets whatever the grads), and the moments, which hold the
+    grads, within 1e-5 of each leaf's max."""
+    (tp1, tst, _, _), (jp1, jst, _, _) = _fp32_step_vs_jax(monkeypatch, "int8")
     for a, b in zip(tree_leaves(tp1), jax.tree.leaves(jp1)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=3e-3)
+    print("int8 rounding ties", _hold_moments(tst, jst, int8_ties=True))
+
+
+def test_one_uncompressed_trainer_step_holds_the_grads_of_jax(monkeypatch):
+    """2 microbatches, no compression and no clipping (which would scale
+    the grads to a norm of 1 and hide their size): the moments within
+    1e-5 of each leaf's max, element for element."""
+    (_, tst, _, _), (_, jst, _, _) = _fp32_step_vs_jax(monkeypatch, "none",
+                                                       clip_norm=None)
+    assert _hold_moments(tst, jst) == 0
 
 
 # ----------------------------------------------------------------- donate
