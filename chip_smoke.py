@@ -138,6 +138,26 @@ Phases, none of them caught — any failure exits non-zero:
    loss non-zero, every param leaf moved from the Trainer's initial
    weights (copied to the host); step ms and the device peak.  No kernel
    of ``repro_torch.kernels`` launches.
+15. lm_launch: the LM stack's launch layer, in two processes of their
+   own started together.  (a)-(c), one NCCL group of one rank, with
+   ``CUBLAS_WORKSPACE_CONFIG`` set and deterministic algorithms: (a)
+   qwen3-0.6b at full width, 3 steps of 4 x 2048 tokens (``SyntheticLM``,
+   AdamW with bf16 moments) with the plain ``Trainer``, then the same
+   steps from the same weights with params, moments and batch as
+   DTensors on a (1, 1) mesh placed by ``replan``, ``opt_specs`` and
+   ``batch_specs`` (the dry run's hooks registered): losses and every
+   param and moment leaf bitwise equal; step ms (CUDA events) of both
+   and the device peak.  (b) the dry run of that cell (mesh (1, 1), fake
+   CUDA tensors): its FLOPs equal to the real step's counted by
+   ``analyze`` (step 0 above), and its predicted peak (arguments +
+   temp) within 25 % of the measured ``max_memory_allocated``, with
+   the hand count of ``dense_train_flops`` beside them.  (c) the state
+   checkpointed with ``CheckpointManager``, restored and placed back by
+   ``reshard_restored``: every leaf bitwise.  (d) meanwhile, on the
+   host: qwen3-0.6b ``train_4k`` traced on the (16, 16) production mesh
+   of a fake group of 256 ranks: trace seconds, per-device FLOPs,
+   bytes, memory, collectives and the roofline terms.  No kernel of
+   ``repro_torch.kernels`` launches.
 
 Every phase records the host's RAM peak (``MemTotal - MemAvailable``,
 sampled every 0.2 s).  The line before the last is the card's name and
@@ -172,7 +192,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.calibrate import calibrate  # noqa: E402
 from repro_torch.core.distributed import masked_local_steps  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
@@ -265,6 +285,13 @@ LM_MICROBATCH_ATOL, LM_MICROBATCH_GRAD_TOL = 3e-3, 5e-2
 # cuBLAS's deterministic workspace, for the bitwise resume's own process
 LM_RESUME_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 BF16_FLOPS_PER_S = 989e12
+# the lm_launch phase: qwen3-0.6b at full width, 3 steps of 4 x 2048 tokens
+# on a (1, 1) DTensor mesh over NCCL against the plain Trainer; the dry
+# run's predicted peak within 25 % of the measured one either way, its
+# FLOPs equal to the real step's (to fp64 roundoff); the production cell
+LM_LAUNCH_STEPS, LM_LAUNCH_PEAK_TOL, LM_LAUNCH_FLOP_RTOL = 3, 0.25, 1e-9
+LM_LAUNCH_PROD = ("qwen3-0.6b", "train_4k")
+LM_LAUNCH_TIMEOUT_S = 600
 RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
 
@@ -1923,6 +1950,284 @@ def phase_lm_train(out_dir: str) -> None:
         RESULT["lm_train"] = rec
 
 
+def _leaves_host(tree) -> list:
+    """The leaves of a (DTensor or plain) tree of dicts and tuples, whole,
+    on the host."""
+    from repro_torch.launch.sharding import map_with_path
+
+    out = []
+    map_with_path(lambda _, t: out.append(
+        (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu()), tree)
+    return out
+
+
+def lm_launch_card(out_dir: str, smoke: bool = False) -> dict:
+    """(a)-(c) of phase lm_launch, in a process of its own (one NCCL group
+    per process), started with ``LM_RESUME_ENV`` under deterministic
+    algorithms (the embedding's accumulating backward is otherwise
+    atomic, and two runs of it differ in their last bits).  ``smoke``
+    takes qwen3's smoke config (the card tests)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import clear_hooks, lower_cell, register_hooks
+    from repro_torch.launch.elastic import gather_full, replan, reshard_restored
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_analysis import CostMode
+    from repro_torch.launch.sharding import (
+        batch_specs, distribute, named, opt_specs, param_specs)
+    from repro_torch.optim import OptState
+
+    for k, v in LM_RESUME_ENV.items():
+        check(os.environ.get(k) == v, k, os.environ.get(k))
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="lm_launch")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/init", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    ckpt_dir = os.path.join(out_dir, "lm_launch_ckpt")
+    try:
+        reset_counts()
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        rec = {"mesh": [1, 1], "backend": dist.get_backend(),
+               "torch": torch.__version__}
+        cfg = (get_smoke_config if smoke else get_config)("qwen3-0.6b")
+        model = build_model(cfg)
+        shape = ShapeSpec("lm_launch", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+        data = lm_train_data(cfg)
+        batches = [{k: torch.from_numpy(v).cuda()
+                    for k, v in data.batch(i).items()}
+                   for i in range(LM_LAUNCH_STEPS)]
+        opt = AdamW(lr=3e-4, warmup_steps=1, total_steps=LM_LAUNCH_STEPS,
+                    moment_dtype=torch.bfloat16)
+        tr = Trainer(model, opt, TrainConfig(steps=LM_LAUNCH_STEPS))
+
+        def run(params, state, batches, first=None):
+            """The steps, CUDA-event ms each; ``first`` wraps step 0."""
+            losses, ms = [], []
+            for i, b in enumerate(batches):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                if i == 0 and first is not None:
+                    with first:
+                        params, state, _, loss = tr.step(params, state, None, b)
+                else:
+                    params, state, _, loss = tr.step(params, state, None, b)
+                ev[1].record()
+                torch.cuda.synchronize()
+                losses.append(float(loss))
+                ms.append(ev[0].elapsed_time(ev[1]))
+            return params, state, losses, ms
+
+        # (a) the plain Trainer, then the same steps on DTensors
+        params = model.init_params(lm_gen(), device="cuda")
+        init_tree = tree_map(lambda t: t.to("cpu", copy=True), params)
+        init = [t.clone() for t in _leaves_host(init_tree)]
+        params, state, plain_losses, plain_ms = run(
+            params, opt.init(params), batches)
+        plain = _leaves_host({"p": params, "mu": state.mu, "nu": state.nu})
+        del params, state
+        torch.cuda.empty_cache()
+
+        shapes = model.init_params(None, device="meta")
+        pspecs = param_specs(cfg, shapes, mesh)
+        dparams = reshard_restored(init_tree, replan(cfg, shapes, mesh))
+        del init_tree
+        dstate = distribute(_moments_like(opt, dparams), mesh,
+                            opt_specs(pspecs))
+        dbatches = [distribute(b, mesh, batch_specs(cfg, shape, b, mesh))
+                    for b in batches]
+        register_hooks(mesh, shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        args_gb = (sum(t.numel() * t.element_size() for t in
+                       tree_leaves({"p": dparams, "mu": dstate.mu,
+                                    "nu": dstate.nu}))
+                   + sum(t.numel() * t.element_size()
+                         for t in tree_leaves(dbatches[0]))) / 1e9
+        counter = CostMode()
+        dparams, dstate, losses, ms = run(dparams, dstate, dbatches, counter)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        clear_hooks()
+        sharded = _leaves_host({"p": dparams, "mu": dstate.mu,
+                                "nu": dstate.nu})
+        differ = sum(not torch.equal(a, b) for a, b in zip(sharded, plain))
+        moved = sum(not torch.equal(a, b) for a, b in
+                    zip(sharded[:len(init)], init))
+        rec.update(losses=losses, plain_losses=plain_losses, step_ms=ms,
+                   plain_step_ms=plain_ms, leaves=len(plain),
+                   leaves_not_bitwise=differ, leaves_moved=moved,
+                   max_memory_allocated_gb=peak, arguments_gb=args_gb,
+                   real_step_flops=counter.cost.flops,
+                   real_step_bytes=counter.cost.bytes,
+                   real_step_collectives=counter.cost.collectives,
+                   real_step_ops=counter.ops,
+                   hand_count_tflop=dense_train_flops(
+                       cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)["total"] / 1e12)
+        check(bool(np.isfinite(losses).all()), "lm_launch losses", losses)
+        check(moved == len(init), "lm_launch: params that did not move",
+              len(init) - moved)
+        check(losses == plain_losses and differ == 0,
+              "lm_launch: DTensor steps not bitwise to the plain Trainer",
+              differ, losses, plain_losses)
+
+        # (b) the dry run of the same cell, on fake CUDA tensors
+        t0 = time.perf_counter()
+        dry = lower_cell("qwen3-0.6b", shape.name, False, mesh_shape=(1, 1),
+                         device="cuda", shape=shape, smoke=smoke)
+        rec["dryrun_wall_s"] = time.perf_counter() - t0
+        rec["dryrun"] = dry
+        pred = (dry["memory"]["argument_size_in_bytes"]
+                + dry["memory"]["temp_size_in_bytes"]) / 1e9
+        rec["predicted_peak_gb"] = pred
+        rec["peak_error"] = (pred - peak) / peak
+        rec["flop_rel_diff"] = (dry["cost"]["flops"] - counter.cost.flops) / \
+            counter.cost.flops
+        check(abs(rec["flop_rel_diff"]) <= LM_LAUNCH_FLOP_RTOL,
+              "lm_launch: dry-run FLOPs differ from the real step's",
+              dry["cost"]["flops"], counter.cost.flops)
+        # at smoke size the card's fixed allocations (cuBLAS's workspace)
+        # outweigh the model's, so only the full-width peak is gated
+        check(smoke or abs(rec["peak_error"]) <= LM_LAUNCH_PEAK_TOL,
+              "lm_launch: predicted peak off by more than 25 %", pred, peak)
+
+        # (c) checkpoint the (1, 1) state, restore, reshard: bitwise
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        mgr = CheckpointManager(ckpt_dir, keep=1)
+        state = (dparams, dstate)
+        full = gather_full(state)
+        t0 = time.perf_counter()
+        mgr.save(LM_LAUNCH_STEPS, full)
+        rec["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, meta = mgr.restore(full)
+        rec["restore_s"] = time.perf_counter() - t0
+        del full
+        shardings = (replan(cfg, shapes, mesh),
+                     named(mesh, opt_specs(pspecs)))
+        t0 = time.perf_counter()
+        back = reshard_restored(restored, shardings)
+        torch.cuda.synchronize()
+        rec["reshard_s"] = time.perf_counter() - t0
+        a, b = _leaves_host(back), _leaves_host(state)
+        rec["reshard_leaves"] = len(a)
+        rec["reshard_not_bitwise"] = sum(not torch.equal(x, y)
+                                         for x, y in zip(a, b))
+        rec["checkpoint_gb"] = sum(t.numel() * t.element_size()
+                                   for t in b) / 1e9
+        check(meta["step"] == LM_LAUNCH_STEPS and len(a) == len(b) > 0
+              and rec["reshard_not_bitwise"] == 0,
+              "lm_launch: resharded checkpoint not bitwise",
+              rec["reshard_not_bitwise"])
+        check(isinstance(back[1], OptState), "lm_launch: OptState lost")
+        rec["kernel_launches"] = counts()
+        check(sum(rec["kernel_launches"].values()) == 0, "a kernel launched",
+              rec["kernel_launches"])
+        return rec
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _moments_like(opt, params):
+    """AdamW's initial state for ``params``, as plain tensors on the card
+    (``distribute`` then places them by ``opt_specs``)."""
+    return opt.init(tree_map(
+        lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t, params))
+
+
+def lm_launch_production() -> dict:
+    """(d) of phase lm_launch, in a process of its own: one production
+    dry-run cell on a fake group of 256 ranks, fake CUDA tensors."""
+    from repro_torch.launch.dryrun import lower_cell
+
+    t0 = time.perf_counter()
+    rec = lower_cell(*LM_LAUNCH_PROD, False, device="cuda")
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _json_child(code: str, env=None):
+    """``python -c code`` from the checkout, started now (its last line of
+    output is read by :func:`_json_result`)."""
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            env=dict(os.environ, **(env or {})),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _json_result(proc, what: str) -> dict:
+    try:
+        out, err = proc.communicate(timeout=LM_LAUNCH_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, what, proc.returncode, err[-3000:])
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_lm_launch(out_dir: str) -> None:
+    with phase("lm_launch"):
+        reset_counts()
+        # (d) traces on the host while (a)-(c) run on the card
+        prod = _json_child("import json, chip_smoke; print(json.dumps("
+                           "chip_smoke.lm_launch_production()))")
+        try:
+            card = _json_child(
+                "import json, chip_smoke; print(json.dumps("
+                f"chip_smoke.lm_launch_card({out_dir!r}), default=str))",
+                env=LM_RESUME_ENV)
+            rec = _json_result(card, "lm_launch (a)-(c) process")
+            rec["production"] = _json_result(prod, "lm_launch (d) process")
+        finally:
+            if prod.poll() is None:
+                prod.kill()
+                prod.wait()
+        d, p = rec["dryrun"], rec["production"]
+        log(f"lm_launch qwen3-0.6b (full width) on a (1, 1) DTensor mesh over "
+            f"{rec['backend']}: {LM_LAUNCH_STEPS} steps of {LM_TRAIN_BATCH} x "
+            f"{LM_TRAIN_SEQ} tokens, losses "
+            f"{', '.join(f'{v:.6f}' for v in rec['losses'])}, bitwise to the "
+            f"plain Trainer ({rec['leaves']} param and moment leaves, "
+            f"{rec['leaves_not_bitwise']} differ); step ms (CUDA events) "
+            f"{', '.join(f'{v:.1f}' for v in rec['step_ms'])} (step 0 "
+            f"counted) vs plain {', '.join(f'{v:.1f}' for v in rec['plain_step_ms'])}; "
+            f"device peak {rec['max_memory_allocated_gb']:.2f} GB")
+        log(f"lm_launch dry run of that cell: {d['compile_s']} s trace, "
+            f"{d['cost']['flops'] / 1e12:.4f} TFLOP vs the real step's "
+            f"{rec['real_step_flops'] / 1e12:.4f} (analyze; rel diff "
+            f"{rec['flop_rel_diff']:.2e}), dense_train_flops' hand count "
+            f"{rec['hand_count_tflop']:.2f}; predicted peak "
+            f"{rec['predicted_peak_gb']:.2f} GB (arguments "
+            f"{d['memory']['argument_size_in_bytes'] / 1e9:.2f} + temp "
+            f"{d['memory']['temp_size_in_bytes'] / 1e9:.2f}) vs measured "
+            f"{rec['max_memory_allocated_gb']:.2f} GB ({rec['peak_error']:+.1%})")
+        log(f"lm_launch reshard_restored on the card: {rec['reshard_leaves']} "
+            f"leaves bitwise ({rec['reshard_not_bitwise']} differ), "
+            f"{rec['checkpoint_gb']:.2f} GB, save {rec['save_s']:.2f} s, "
+            f"restore {rec['restore_s']:.2f} s, reshard {rec['reshard_s']:.2f} s")
+        colls = ", ".join(f"{k} {v / 1e9:.3f} GB"
+                          for k, v in p["collectives"].items() if v)
+        log(f"lm_launch production dry run {p['arch']} {p['shape']} on "
+            f"{p['mesh']} ({p['n_chips']} fake ranks): trace "
+            f"{p['compile_s']} s ({p['ops']} ops), per device "
+            f"{p['cost']['flops'] / 1e12:.3f} TFLOP, "
+            f"{p['cost']['bytes_accessed'] / 1e9:.1f} GB accessed, arguments "
+            f"{p['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+            f"{p['memory']['temp_size_in_bytes'] / 1e9:.2f} GB; collectives "
+            f"{colls}; roofline terms (data-sheet rates) compute "
+            f"{p['roofline']['t_compute']:.4f} s, memory "
+            f"{p['roofline']['t_memory']:.4f} s, collective "
+            f"{p['roofline']['t_collective']:.4f} s, dominant "
+            f"{p['roofline']['dominant']}")
+        launched = counts()
+        check(sum(launched.values()) == 0, "a kernel launched", launched)
+        RESULT["lm_launch"] = rec
+
+
 def kernels_line() -> dict:
     out = []
     for impl, key in (("cuda", "main_path_box2d1r"),
@@ -1979,6 +2284,7 @@ def main(argv=None) -> int:
     phase_shard_map(args.size)
     phase_lm_serve()
     phase_lm_train(out_dir)
+    phase_lm_launch(out_dir)
     RESULT["total_s"] = time.perf_counter() - t_all
     line = kernels_line()
     RESULT.update(line)

@@ -1,11 +1,15 @@
 """Architecture config registry (the port of ``repro.configs``).
 
 ``get_config(name)`` / ``get_smoke_config(name)`` resolve the 10 assigned
-architectures; ``cell_supported`` says which (arch x shape) cells run.
-The dry run's ``input_specs`` belongs to the launch layer and is not
-ported here.
+architectures; ``cell_supported`` says which (arch x shape) cells run;
+``input_specs(cfg, shape)`` builds the meta-tensor stand-ins the dry run
+traces against (no allocation).
 """
 from __future__ import annotations
+
+from typing import Dict
+
+import torch
 
 from .base import ArchConfig, ShapeSpec, SHAPES  # noqa: F401
 
@@ -16,7 +20,7 @@ from . import (
 )
 
 __all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "ARCH_NAMES", "get_config",
-           "get_smoke_config", "cell_supported"]
+           "get_smoke_config", "cell_supported", "input_specs"]
 
 _MODULES = {
     "minitron-4b": minitron_4b,
@@ -58,3 +62,38 @@ def cell_supported(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
         if not cfg.sub_quadratic:
             return False, "pure full-attention arch: O(S) KV decode at 500k infeasible"
     return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec,
+                device="meta") -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of this cell: tensors on ``device``
+    (``meta`` by default: a shape and a dtype, no storage)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def sd(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=device)
+
+    if shape.kind == "train":
+        specs = {
+            "tokens": sd((B, S), i32),
+            "labels": sd((B, S), i32),
+        }
+        if cfg.family == "vlm":
+            specs["images"] = sd((B, cfg.n_image_tokens, cfg.d_model), bf16)
+        if cfg.family == "encdec":
+            specs["frames"] = sd((B, cfg.n_frames, cfg.d_model), bf16)
+            # decoder trains on bounded target lengths
+            specs["tokens"] = sd((B, min(S, cfg.max_target_len)), i32)
+            specs["labels"] = sd((B, min(S, cfg.max_target_len)), i32)
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": sd((B, S), i32)}
+        if cfg.family == "vlm":
+            specs["images"] = sd((B, cfg.n_image_tokens, cfg.d_model), bf16)
+        if cfg.family == "encdec":
+            specs["frames"] = sd((B, cfg.n_frames, cfg.d_model), bf16)
+            specs["tokens"] = sd((B, min(S, cfg.max_target_len)), i32)
+        return specs
+    # decode: one new token against a seq_len-deep cache
+    return {"token": sd((B, 1), i32)}

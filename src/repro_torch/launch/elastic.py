@@ -1,5 +1,17 @@
-"""Elastic re-planning of sharded plans: survive rank loss mid-run (the
-stencil half of :mod:`repro.launch.elastic`, ported).
+"""Elastic re-planning: survive topology change mid-run (the port of
+:mod:`repro.launch.elastic`).
+
+Two layers of elasticity live here:
+
+* **Checkpoint resharding** (the LM half): checkpoints store full
+  (unsharded) arrays and shardings are *derived* (``param_specs`` is a
+  pure function of config + mesh), so an elastic restart reduces to
+  rebuild mesh → re-derive placements (:func:`replan`) → place the
+  restored leaves on the new mesh (:func:`reshard_restored`,
+  ``distribute_tensor``); :func:`gather_full` is what a save reads from
+  DTensor leaves.
+* **Plan-IR elasticity** (the stencil half, below).
+
 
 A :class:`~repro_torch.core.plan.ShardedPlan` commits host state once at
 its final store phase, so :func:`run_elastic_sharded` executes it as a
@@ -17,8 +29,6 @@ transfers, never the run.  The default executor is a
 (``executor_factory=lambda mesh: ShardMapExecutor(...)``), whose rank
 processes the harness stops as soon as their mesh is left behind.
 
-The checkpoint-resharding half of the JAX module (``replan``,
-``reshard_restored``) belongs to the LM stack and is not ported.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import dataclasses
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.faults import FaultInjector, FaultPlan, InjectedFault, \
     RankLossFault, RetryPolicy
@@ -33,8 +44,49 @@ from repro_torch.core.plan import ShardedPlan
 from repro_torch.core.recovery import PlanExecutionError, plan_fingerprint
 from repro_torch.core.shard import compile_sharded
 
-__all__ = ["ElasticReport", "shrink_mesh", "replan_sharded",
+__all__ = ["replan", "reshard_restored", "gather_full",
+           "ElasticReport", "shrink_mesh", "replan_sharded",
            "run_elastic_sharded"]
+
+
+def replan(cfg, params_shape, mesh):
+    """Derive shardings (a tree of :class:`~repro_torch.launch.sharding.
+    NamedSharding`) for an arbitrary (possibly new) mesh."""
+    from .sharding import named, param_specs
+
+    return named(mesh, param_specs(cfg, params_shape, mesh))
+
+
+def reshard_restored(restored, shardings):
+    """Place host leaves from ``CheckpointManager.restore`` (numpy arrays,
+    or CPU bf16 tensors) onto the new mesh: every rank passes the whole
+    leaf, ``distribute_tensor`` keeps its shard on the mesh's device."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from .sharding import map_with_path
+
+    flat = {}
+    map_with_path(lambda p, s: flat.__setitem__(p, s), shardings)
+
+    def place(path, leaf):
+        s = flat[path]
+        # np.require keeps a 0-d leaf 0-d (ascontiguousarray makes it 1-d)
+        t = leaf if isinstance(leaf, torch.Tensor) else \
+            torch.from_numpy(np.require(leaf, requirements="C"))
+        return distribute_tensor(t.to(s.mesh.device_type), s.mesh,
+                                 s.placements)
+
+    return map_with_path(place, restored)
+
+
+def gather_full(tree):
+    """Every DTensor leaf of ``tree`` as a whole tensor (an all-gather
+    that every rank of its mesh joins); other leaves as they are."""
+    from .sharding import map_with_path
+
+    return map_with_path(
+        lambda _, t: t.full_tensor() if hasattr(t, "full_tensor") else t,
+        tree)
 
 
 # --------------------------------------------------------------------------

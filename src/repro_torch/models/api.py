@@ -31,13 +31,17 @@ frontends (vision patches, audio frames) are stubs per the assignment:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
-from .layers import chunked_attention, dense, dense_init, embed_init, remat_call
+from .layers import (
+    chunked_attention, dense, dense_init, embed_init, is_dtensor, remat_call,
+    sharded_scope, split_heads,
+)
 from .mamba2 import mamba_apply, mamba_decode_step, mamba_init, mamba_init_state
 from .moe import moe_apply, moe_init
 from .transformer import (
@@ -66,13 +70,21 @@ class Model:
     def loss(self, params, batch):
         """Mean next-token cross entropy + 0.01 · aux.  The label's logit
         is a ``gather`` where JAX takes a one-hot masked sum: the same
-        value and gradient, without a (B, S, V) mask."""
-        logits, aux = self.forward(params, batch)
-        labels = batch["labels"]
-        lf = logits.float()
-        lse = torch.logsumexp(lf, dim=-1)
-        ll = lf.gather(-1, labels[..., None].long())[..., 0]
-        return (lse - ll).mean() + 0.01 * aux
+        value and gradient, without a (B, S, V) mask.  On DTensor logits
+        it is JAX's masked sum, which keeps a vocab-sharded dim sharded
+        (DTensor's gather on it fails)."""
+        with sharded_scope(params, batch):
+            logits, aux = self.forward(params, batch)
+            labels = batch["labels"]
+            lf = logits.float()
+            lse = torch.logsumexp(lf, dim=-1)
+            if is_dtensor(lf):
+                vocab_iota = torch.arange(lf.shape[-1], device=lf.device)
+                onehot = labels[..., None] == vocab_iota
+                ll = torch.where(onehot, lf, 0.0).sum(dim=-1)
+            else:
+                ll = lf.gather(-1, labels[..., None].long())[..., 0]
+            return (lse - ll).mean() + 0.01 * aux
 
 
 def _sinusoid(S: int, D: int, device, dtype=torch.bfloat16):
@@ -358,10 +370,10 @@ def _cross_block_apply(p, cfg, x, kv_x=None, kv_cache=None):
     h = norm_apply(cfg, p["ln1"], x)
     B, S, D = x.shape
     hd = cfg.d_head
-    q = dense(p["attn"]["wq"], h).reshape(B, S, cfg.n_heads, hd)
+    q = split_heads(dense(p["attn"]["wq"], h), cfg.n_heads)
     if kv_cache is None:
-        k = dense(p["attn"]["wk"], kv_x).reshape(B, -1, cfg.n_kv_heads, hd)
-        v = dense(p["attn"]["wv"], kv_x).reshape(B, -1, cfg.n_kv_heads, hd)
+        k = split_heads(dense(p["attn"]["wk"], kv_x), cfg.n_kv_heads)
+        v = split_heads(dense(p["attn"]["wv"], kv_x), cfg.n_kv_heads)
     else:
         k, v = kv_cache["k"], kv_cache["v"]
     o = chunked_attention(q, k, v, causal=False)
@@ -479,7 +491,7 @@ def _build_encdec(cfg: ArchConfig) -> Model:
 
     def _cross_from_kv(ap, x, kv):
         B, S, D = x.shape
-        q = dense(ap["wq"], x).reshape(B, S, cfg.n_heads, cfg.d_head)
+        q = split_heads(dense(ap["wq"], x), cfg.n_heads)
         o = chunked_attention(q, kv["k"], kv["v"], causal=False)
         return dense(ap["wo"], o.reshape(B, S, cfg.n_heads * cfg.d_head))
 
@@ -527,11 +539,9 @@ def _build_encdec(cfg: ArchConfig) -> Model:
     def prefill(p, batch, cache):
         mem = encode(p, batch["frames"])
         # precompute per-layer cross KV once (decode reuses it)
-        B, Sk, D = mem.shape
-        kv_shape = (B, Sk, cfg.n_kv_heads, cfg.d_head)
         cross = tree_stack([
-            {"k": dense(ap["wk"], mem).reshape(kv_shape),
-             "v": dense(ap["wv"], mem).reshape(kv_shape)}
+            {"k": split_heads(dense(ap["wk"], mem), cfg.n_kv_heads),
+             "v": split_heads(dense(ap["wv"], mem), cfg.n_kv_heads)}
             for ap in (tree_index(p["dec"]["cross"], i)
                        for i in range(cfg.n_layers))])
         x = _embed_dec(p, batch["tokens"])
@@ -561,8 +571,21 @@ _BUILDERS = {
 }
 
 
+def _scoped(fn):
+    """``fn`` under :func:`sharded_scope` of its arguments."""
+    @functools.wraps(fn)
+    def call(*args):
+        with sharded_scope(*args):
+            return fn(*args)
+    return call
+
+
 def build_model(cfg: ArchConfig) -> Model:
     try:
-        return _BUILDERS[cfg.family](cfg)
+        build = _BUILDERS[cfg.family]
     except KeyError:
         raise KeyError(f"unknown family {cfg.family!r}")
+    m = build(cfg)
+    return dataclasses.replace(m, forward=_scoped(m.forward),
+                               prefill=_scoped(m.prefill),
+                               decode_step=_scoped(m.decode_step))

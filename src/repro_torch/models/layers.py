@@ -18,9 +18,20 @@ Conventions:
 The JAX numerics are the spec: the rmsnorm's cast order, the
 population variance of ``layernorm``, the tanh-approximate gelu, the
 half-split rope, and the attention accumulator kept in q's dtype.
+
+Sharded runs.  The params may be DTensors (the launch layer places them
+on a ``DeviceMesh``).  The models build fresh tensors beside them
+(masks, positions, zeros), which DTensor refuses to mix with its own, so
+every entry point runs under :func:`sharded_scope`: DTensor's implicit
+replication of plain tensors, entered only when a leaf is a DTensor,
+and only once however deeply the entry points nest.  The launch layer
+registers sharding hooks here (:func:`set_activation_sharding`,
+:func:`set_attention_sharding`) as the JAX package does; with nothing
+registered, or on plain tensors, they do nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -36,15 +47,186 @@ __all__ = [
     "rope", "chunked_attention", "decode_attention",
     "swiglu_init", "swiglu", "gelu_mlp_init", "gelu_mlp",
     "embed_init", "randn", "remat_call",
+    "set_activation_sharding", "set_attention_sharding", "constrain_acts",
+    "is_dtensor", "sharded_scope",
 ]
 
 NEG_INF = -1e30   # the JAX package's mask value (and the running max's floor)
 
 
+# --------------------------------------------------------------------------
+# Sharded runs: DTensor params, and the launch layer's sharding hooks.
+
+def is_dtensor(x) -> bool:
+    """Is ``x`` a ``torch.distributed.tensor.DTensor``?  (Never imports
+    the distributed package for a plain tensor's sake.)"""
+    return type(x).__name__ == "DTensor" and isinstance(x, torch.Tensor)
+
+
+def _has_dtensor(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_dtensor(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return any(_has_dtensor(v) for v in tree)
+    return is_dtensor(tree)
+
+
+_SCOPE = {"active": False}
+
+
+@contextlib.contextmanager
+def sharded_scope(*trees):
+    """DTensor's ``implicit_replication`` (a plain tensor meeting a DTensor
+    is taken as replicated on its mesh) while a leaf of ``trees`` is a
+    DTensor, entered by the outermost caller only: the context is a
+    switch, and an inner exit would turn it off under the outer one.
+    On plain trees it does nothing."""
+    if _SCOPE["active"] or not _has_dtensor(trees):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _SCOPE["active"] = True
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _SCOPE["active"] = False
+
+
+# Activation-sharding hook: the launch layer can register placements that
+# model code applies to (B, S, D) activations at layer boundaries (keeps
+# models mesh-agnostic while anchoring activation shardings instead of
+# leaving them to DTensor's propagation).  Registered as (mesh, placements).
+_ACT_SHARDING = {"val": None}
+
+# Attention q-chunk sharding: when kv heads don't divide the model axis,
+# head-parallel attention replicates compute; sharding the *q-chunk* axis
+# of chunked attention over "model" restores full parallelism.  Registered
+# as ((mesh, placements) for the (nq, B, G, R, qc, Dh) stack, target nq).
+_ATTN_SHARDING = {"val": None, "nq": None}
+
+
+def set_activation_sharding(sharding) -> None:
+    """Register ``(mesh, placements)`` for (B, S, D) activations (None to
+    clear)."""
+    _ACT_SHARDING["val"] = sharding
+
+
+def set_attention_sharding(sharding, nq: Optional[int]) -> None:
+    """Register q-chunk-axis ``(mesh, placements)`` for chunked attention
+    and the q-chunk count to align to (None, None to clear)."""
+    _ATTN_SHARDING["val"] = sharding
+    _ATTN_SHARDING["nq"] = nq
+
+
+def _redistribute(x, sharding):
+    mesh, placements = sharding
+    return x.redistribute(mesh, placements)
+
+
+def constrain_acts(x: torch.Tensor) -> torch.Tensor:
+    """A 3-D DTensor redistributed to the registered activation placements;
+    anything else (no registration, a plain tensor) unchanged."""
+    s = _ACT_SHARDING["val"]
+    if s is not None and x.ndim == 3 and is_dtensor(x):
+        return _redistribute(x, s)
+    return x
+
+
+def local_region(fn, args, in_placements, out_placements, mesh):
+    """``fn`` on each rank's local tensors (DTensor's ``local_map``): the
+    DTensor ``args`` are redistributed to ``in_placements`` (None for a
+    non-DTensor arg), the outputs are DTensors placed by
+    ``out_placements`` (a tuple with one placements tuple per output).
+    An input replicated over a mesh dim that another input is sharded on
+    takes its gradient as a ``Partial`` sum there: each rank's local
+    gradient is its share of the whole."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    split = {i for pl in in_placements if pl is not None
+             for i, q in enumerate(pl) if q.is_shard()}
+    grads = tuple(
+        None if pl is None else tuple(
+            q if q.is_shard() else (Partial() if i in split else Replicate())
+            for i, q in enumerate(pl))
+        for pl in in_placements)
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _head_placements(mesh, B: int, n_heads: int, n_kv: int):
+    """The placements of a head-parallel region over ``mesh``: the batch
+    (dim 0) over the data axes where it divides them, the heads (dim 2)
+    over "model" where both head counts divide it.  Returns (q's, kv's,
+    model mesh dim or None, kv replicated while q is split)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names or ())
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    n_dp = math.prod(mesh.size(i) for i in dp)
+    q_pl = [Replicate()] * mesh.ndim
+    if dp and B % n_dp == 0:
+        for i in dp:
+            q_pl[i] = Shard(0)
+    kv_pl = list(q_pl)
+    t = names.index("model") if "model" in names else None
+    kv_rep = False
+    if t is not None and n_heads % mesh.size(t) == 0:
+        q_pl[t] = Shard(2)
+        if n_kv % mesh.size(t) == 0:
+            kv_pl[t] = Shard(2)
+        else:
+            kv_rep = True
+    return tuple(q_pl), tuple(kv_pl), t, kv_rep
+
+
+def kv_groups(mesh, t, n_heads_local: int, rep: int):
+    """The kv groups ``(g0, g1)`` that this rank's ``n_heads_local`` query
+    heads (a slice of mesh dim ``t``'s split) attend with, ``rep`` query
+    heads a group; raises when the slice cuts a group unevenly."""
+    if n_heads_local % rep and rep % n_heads_local:
+        raise ValueError(f"{n_heads_local} query heads a rank cannot share "
+                         f"kv groups of {rep}")
+    h0 = mesh.get_local_rank(t) * n_heads_local
+    return h0 // rep, (h0 + n_heads_local - 1) // rep + 1
+
+
+def split_heads(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n·hd) -> (..., n, hd).  On a DTensor whose last dim is sharded
+    over mesh dims that do not split whole heads, those dims are
+    replicated first (a reshape would cut heads across ranks)."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+
+        d = t.ndim - 1
+        dims = [i for i, q in enumerate(t.placements) if q.is_shard(d)]
+        if dims and n % math.prod(t.device_mesh.size(i) for i in dims):
+            pl = [Replicate() if i in dims else q
+                  for i, q in enumerate(t.placements)]
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(*t.shape[:-1], n, t.shape[-1] // n)
+
+
+def _constrain_qchunks(x: torch.Tensor) -> torch.Tensor:
+    s = _ATTN_SHARDING["val"]
+    if s is not None and x.ndim == 6 and is_dtensor(x):
+        return _redistribute(x, s)
+    return x
+
+
 def randn(gen: torch.Generator, shape, device=None) -> torch.Tensor:
-    """Standard normal fp32 draw from ``gen`` (on its own device), on ``device``."""
+    """Standard normal fp32 draw from ``gen`` (on its own device), on
+    ``device``.  On ``meta`` no draw is made (``gen`` may be None): the
+    dry run's shape trees come from ``init_params(None, device="meta")``."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=dev)
     t = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return t.to(resolve_device(device))
+    return t.to(dev)
 
 
 def _tracks_grad(obj) -> bool:
@@ -76,7 +258,49 @@ def dense_init(gen, d_in: int, d_out: int, scale: Optional[float] = None,
 
 
 def dense(w, x):
+    if is_dtensor(x) and x.ndim > 2:
+        # both sides pinned: the matmul's gradients reach the ops around
+        # it (views that cannot split a gradient sharded otherwise) as
+        # their forward values were placed
+        x = _GradPlaced.apply(_one_leading_shard(x))
+        return _GradPlaced.apply(x @ w.to(x.dtype))
     return x @ w.to(x.dtype)
+
+
+class _GradPlaced(torch.autograd.Function):
+    """Identity on a DTensor whose gradient is redistributed to the
+    DTensor's own placements (not left as the next op's backward placed
+    it)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Replicate
+
+        # a partial sum's gradient is the same on every rank: replicated
+        ctx.mesh = y.device_mesh
+        ctx.placements = [Replicate() if q.is_partial() else q
+                          for q in y.placements]
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def _one_leading_shard(x):
+    """A DTensor whose leading dims (all but the last, which a matmul
+    flattens into one) are sharded on dim 0 at most: a shard of any other
+    leading dim is gathered first (e.g. a sequence-sharded activation
+    before a tensor-parallel projection, as Megatron's sequence
+    parallelism gathers it), since flattening it would split the
+    flattened dim in strides."""
+    from torch.distributed.tensor import Replicate
+
+    if not any(q.is_shard() and 0 < q.dim < x.ndim - 1 for q in x.placements):
+        return x
+    pl = [Replicate() if q.is_shard() and 0 < q.dim < x.ndim - 1 else q
+          for q in x.placements]
+    return x.redistribute(x.device_mesh, pl)
 
 
 def rmsnorm_init(d: int, device=None):
@@ -153,12 +377,18 @@ def chunked_attention(
     The tails are padded to whole chunks and masked with -1e30; the
     accumulator stays in q's dtype, the running max and sum in fp32.
     """
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, causal, window, q_offset,
+                                  q_chunk, kv_chunk)
     B, Sq, H, Dh = q.shape
     _, Sk, G, _ = k.shape
     if H % G:
         raise ValueError(f"{H} query heads do not group over {G} kv heads")
     rep = H // G
 
+    nq_target = _ATTN_SHARDING["nq"]
+    if nq_target and Sq % nq_target == 0 and Sq // nq_target >= 16:
+        q_chunk = Sq // nq_target  # align the q-chunk axis with "model"
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Sk)
     nq = -(-Sq // q_chunk)
@@ -176,12 +406,15 @@ def chunked_attention(
     qpos_base = torch.arange(q_chunk, device=dev) + q_offset
     kpos_all = torch.arange(nk * kv_chunk, device=dev)
 
-    def one_q_chunk(qc, kp, vp, qi: int):
-        qpos = qpos_base + qi * q_chunk
-        acc = torch.zeros((B, G, rep, q_chunk, Dh), dtype=q.dtype, device=dev)
-        m = torch.full((B, G, rep, q_chunk), -math.inf, dtype=torch.float32,
+    def one_q_chunk(qc, kp, vp, qi: int, base=None):
+        """q rows ``qc`` (B, G, rep, rows, Dh) at positions ``base`` (the
+        q chunk's by default) + ``qi`` chunks against every kv chunk."""
+        qpos = (qpos_base if base is None else base) + qi * q_chunk
+        rows = qc.shape[3]
+        acc = torch.zeros((B, G, rep, rows, Dh), dtype=q.dtype, device=dev)
+        m = torch.full((B, G, rep, rows), -math.inf, dtype=torch.float32,
                        device=dev)
-        lse = torch.zeros((B, G, rep, q_chunk), dtype=torch.float32, device=dev)
+        lse = torch.zeros((B, G, rep, rows), dtype=torch.float32, device=dev)
         for ki in range(nk):
             ks = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
             kpos = kpos_all[ks]
@@ -201,12 +434,48 @@ def chunked_attention(
             m = m_new
         return acc / lse.clamp_min(1e-30)[..., None].to(acc.dtype)
 
+    if _ATTN_SHARDING["val"] is not None:
+        # sequence-sharded attention: the q chunks as one batched axis
+        # (JAX vmaps them) that the registered placements shard over
+        # "model": every q row in one pass over the kv chunks, the
+        # (nq, B, G, rep, q_chunk, Dh) stack constrained in and out
+        def stack(x):
+            return x.reshape(B, G, rep, nq, q_chunk, Dh).movedim(3, 0)
+
+        def unstack(x):
+            return x.movedim(0, 3).reshape(B, G, rep, nq * q_chunk, Dh)
+
+        qs = unstack(_constrain_qchunks(stack(qp)))
+        base = torch.arange(nq * q_chunk, device=dev) + q_offset
+        out = remat_call(one_q_chunk, qs, kp, vp, 0, base)
+        out = unstack(_constrain_qchunks(stack(out))).reshape(
+            B, H, nq * q_chunk, Dh)
+        return out.movedim(1, 2)[:, :Sq]
     outs = [remat_call(one_q_chunk, qp[:, :, :, qi * q_chunk:(qi + 1) * q_chunk],
                        kp, vp, qi)
             for qi in range(nq)]
     # nq x (B, G, rep, q_chunk, Dh) -> (B, Sq, H, Dh)
     out = torch.cat(outs, dim=3).reshape(B, H, nq * q_chunk, Dh)
     return out.movedim(1, 2)[:, :Sq]
+
+
+def _sharded_attention(q, k, v, causal, window, q_offset, q_chunk,
+                       kv_chunk):
+    """``chunked_attention`` on DTensors as a head-parallel region: each
+    rank attends its batch rows with its query heads (and their kv
+    groups)."""
+    mesh = q.device_mesh
+    H, G = q.shape[2], k.shape[2]
+    q_pl, kv_pl, t, kv_rep = _head_placements(mesh, q.shape[0], H, G)
+
+    def local(ql, kl, vl):
+        if kv_rep:
+            g0, g1 = kv_groups(mesh, t, ql.shape[2], H // G)
+            kl, vl = kl[:, :, g0:g1], vl[:, :, g0:g1]
+        return chunked_attention(ql, kl, vl, causal, window, q_offset,
+                                 q_chunk, kv_chunk)
+
+    return local_region(local, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,), mesh)
 
 
 def decode_attention(
@@ -216,6 +485,8 @@ def decode_attention(
     cache_len,              # number of valid entries (int or 0-d tensor)
 ) -> torch.Tensor:
     """Single-token attention against a KV cache (full or ring)."""
+    if is_dtensor(q):
+        return _sharded_decode_attention(q, k_cache, v_cache, cache_len)
     B, L, G, Dh = k_cache.shape
     H = q.shape[2]
     rep = H // G
@@ -230,6 +501,28 @@ def decode_attention(
     p = torch.softmax(s, dim=-1).to(vq.dtype)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, vq)
     return o.reshape(B, H, 1, Dh).movedim(1, 2)  # (B, 1, H, Dh)
+
+
+def _sharded_decode_attention(q, k_cache, v_cache, cache_len):
+    """``decode_attention`` on DTensors as a head-parallel region (the
+    cache's length gathered on every rank)."""
+    mesh = q.device_mesh
+    H, G = q.shape[2], k_cache.shape[2]
+    q_pl, kv_pl, t, kv_rep = _head_placements(mesh, q.shape[0], H, G)
+    n_pl = None
+
+    def local(ql, kl, vl, n):
+        if kv_rep:
+            g0, g1 = kv_groups(mesh, t, ql.shape[2], H // G)
+            kl, vl = kl[:, :, g0:g1], vl[:, :, g0:g1]
+        return decode_attention(ql, kl, vl, n)
+
+    if is_dtensor(cache_len):
+        from torch.distributed.tensor import Replicate
+
+        n_pl = (Replicate(),) * mesh.ndim
+    return local_region(local, (q, k_cache, v_cache, cache_len),
+                        (q_pl, kv_pl, kv_pl, n_pl), (q_pl,), mesh)
 
 
 def swiglu_init(gen, d: int, f: int, device=None):

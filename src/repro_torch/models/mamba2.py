@@ -13,6 +13,9 @@ fp32; its four-operand contractions are split into pairwise ones (the
 result, not the contraction order, is the spec).  ``softplus`` is
 ``logaddexp(x, 0)``, jax.nn.softplus exactly (``F.softplus`` would return
 ``x`` above its threshold of 20).
+
+On DTensors the scan runs as a head-parallel region (each rank scans its
+batch rows and heads), as attention does.
 """
 from __future__ import annotations
 
@@ -23,7 +26,10 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
-from .layers import dense, dense_init, randn, rmsnorm, rmsnorm_init
+from .layers import (
+    _head_placements, constrain_acts, dense, dense_init, is_dtensor,
+    local_region, randn, rmsnorm, rmsnorm_init,
+)
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_init_state", "mamba_decode_step"]
 
@@ -72,12 +78,37 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
 
 def _causal_conv(p, xBC: torch.Tensor, w: int) -> torch.Tensor:
     """Depthwise causal conv1d along S.  xBC: (B, S, C)."""
+    if is_dtensor(xBC):
+        return _sharded_conv(p, xBC, w)
     pad = F.pad(xBC, (0, 0, w - 1, 0))
     out = sum(
         pad[:, i: i + xBC.shape[1]] * p["conv_w"][i].to(xBC.dtype)
         for i in range(w)
     )
     return F.silu(out + p["conv_b"].to(xBC.dtype))
+
+
+def _sharded_conv(p, xBC, w: int):
+    """:func:`_causal_conv` on DTensors, one local conv per rank: batch
+    rows over the data axes, channels over "model" where the conv's
+    weights split them (DTensor's ``pad`` strategy fails on torch
+    2.11)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = xBC.device_mesh
+    x_pl, _, t, _ = _head_placements(mesh, xBC.shape[0], 1, 1)
+    x_pl = list(x_pl)
+    w_pl = [Replicate()] * mesh.ndim
+    b_pl = [Replicate()] * mesh.ndim
+    if t is not None and xBC.shape[-1] % mesh.size(t) == 0:
+        x_pl[t], w_pl[t], b_pl[t] = Shard(2), Shard(1), Shard(0)
+
+    def local(x, cw, cb):
+        return _causal_conv({"conv_w": cw, "conv_b": cb}, x, w)
+
+    return local_region(local, (xBC, p["conv_w"], p["conv_b"]),
+                        (tuple(x_pl), tuple(w_pl), tuple(b_pl)),
+                        (tuple(x_pl),), mesh)
 
 
 def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
@@ -87,6 +118,8 @@ def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     A: (H,) negative; Bm/Cm: (B,S,N).
     Returns (y: (B,S,H,P) in x's dtype, final_state: (B,H,P,N) fp32).
     """
+    if is_dtensor(x):
+        return _sharded_ssd(x, dt, A, Bm, Cm, chunk, init_state)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -132,6 +165,32 @@ def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     return y.to(x.dtype), h
 
 
+def _sharded_ssd(x, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """:func:`_ssd_chunked` on DTensors, one local scan per rank: batch
+    rows over the data axes, heads over "model" where they divide it
+    (B and C, shared by the heads, whole on every rank)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    x_pl, _, t, _ = _head_placements(mesh, x.shape[0], x.shape[2],
+                                     x.shape[2])
+
+    def moved(dim):   # x's placements with its head shard on ``dim``
+        return tuple(Shard(dim) if i == t and q.is_shard(2) else q
+                     for i, q in enumerate(x_pl))
+
+    bc_pl = tuple(Replicate() if i == t else q for i, q in enumerate(x_pl))
+    a_pl = tuple(Shard(0) if i == t and q.is_shard(2) else Replicate()
+                 for i, q in enumerate(x_pl))
+    h_pl = moved(1)
+    args = (x, dt, A, Bm, Cm, init_state)
+    in_pl = (x_pl, x_pl, a_pl, bc_pl, bc_pl,
+             h_pl if is_dtensor(init_state) else None)
+    return local_region(
+        lambda *a: _ssd_chunked(*a[:5], chunk, a[5]), args, in_pl,
+        (x_pl, h_pl), mesh)
+
+
 def mamba_apply(
     p,
     cfg: ArchConfig,
@@ -155,7 +214,7 @@ def mamba_apply(
     y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
     y = rmsnorm(p["gn"], y * F.silu(z))
-    out = res + dense(p["out_proj"], y)
+    out = constrain_acts(res + dense(p["out_proj"], y))
     if return_state:
         # conv history for decode continuity: last (w-1) raw conv inputs
         w = cfg.conv_width
@@ -180,15 +239,26 @@ def mamba_init_state(cfg: ArchConfig, batch: int, device=None):
 
 def mamba_decode_step(p, cfg: ArchConfig, u: torch.Tensor, state):
     """One-token recurrent step.  u: (B, 1, D) -> (B, 1, D), new state."""
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    B = u.shape[0]
     res = u
     x = rmsnorm(p["ln"], u)
     z, xBC, dt = _split_proj(cfg, dense(p["in_proj"], x))  # (B,1,*)
+    if is_dtensor(xBC):
+        y, state = _sharded_decode_core(p, cfg, z, xBC, dt, state)
+    else:
+        y, state = _decode_core(p, cfg, z, xBC, dt, state)
+    out = res + dense(p["out_proj"], y)
+    return out, state
+
+
+def _decode_core(p, cfg: ArchConfig, z, xBC, dt, state):
+    """The recurrent step between the two projections: (y (B, 1, di),
+    new state)."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    B = xBC.shape[0]
     # conv cache: last (w-1) inputs
     hist = torch.cat([state["conv"], xBC.to(state["conv"].dtype)], dim=1)
     conv_out = torch.einsum("bwc,wc->bc", hist.float(), p["conv_w"])
-    xBC1 = F.silu(conv_out + p["conv_b"]).to(u.dtype)[:, None]  # (B,1,C)
+    xBC1 = F.silu(conv_out + p["conv_b"]).to(z.dtype)[:, None]  # (B,1,C)
     new_conv = hist[:, 1:]
 
     xs = xBC1[..., :di].reshape(B, H, P)
@@ -199,9 +269,33 @@ def mamba_decode_step(p, cfg: ArchConfig, u: torch.Tensor, state):
     dA = torch.exp(dtv * A)                                   # (B,H)
     xdt = xs.float() * dtv[..., None]                         # (B,H,P)
     h = state["ssm"] * dA[..., None, None] + xdt[..., None] * Bm[:, None, None, :]
-    y = torch.einsum("bhpn,bn->bhp", h, Cm).to(u.dtype)
+    y = torch.einsum("bhpn,bn->bhp", h, Cm).to(z.dtype)
     y = y + xs * p["D"].to(y.dtype)[None, :, None]
     y = y.reshape(B, 1, di)
     y = rmsnorm(p["gn"], y * F.silu(z))
-    out = res + dense(p["out_proj"], y)
-    return out, {"ssm": h, "conv": new_conv}
+    return y, {"ssm": h, "conv": new_conv}
+
+
+def _sharded_decode_core(p, cfg: ArchConfig, z, xBC, dt, state):
+    """:func:`_decode_core` on DTensors, one local step per rank: batch
+    rows over the data axes, everything else whole on every rank (a
+    decode step is small; its einsums would flatten a batch-sharded and
+    a head-sharded dim together)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = xBC.device_mesh
+    b_pl, _, _, _ = _head_placements(mesh, xBC.shape[0], 1, 1)
+    b_pl = tuple(Replicate() if q.is_shard(2) else q for q in b_pl)
+    rep = (Replicate(),) * mesh.ndim
+    keys = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "gn")
+
+    def local(z, xBC, dt, conv, ssm, *w):
+        y, st = _decode_core(dict(zip(keys, w)), cfg, z, xBC, dt,
+                             {"conv": conv, "ssm": ssm})
+        return y, st["conv"], st["ssm"]
+
+    y, conv, ssm = local_region(
+        local, (z, xBC, dt, state["conv"], state["ssm"],
+                *(p[k] for k in keys)),
+        (b_pl,) * 5 + (rep,) * len(keys), (b_pl, b_pl, b_pl), mesh)
+    return y, {"ssm": ssm, "conv": conv}

@@ -9,16 +9,55 @@ from a cumsum over a one-hot (T·k, E) matrix in token-major order;
 assignments beyond the capacity ``C = min(max(floor(cf · T · k / E), 1),
 T)`` are dropped (their zero contribution lands in slot 0).  The expert
 GEMMs are batched matmuls over stacked expert weights (E, D, F).
+
+The launch layer's hooks, as in the JAX package: ``set_moe_block_dispatch``
+dispatches tokens in ``n`` independent blocks, each with its own capacity
+(production MoE stacks' per-device semantics); ``set_moe_shard_map``
+runs the layer as an explicit-collective region over a mesh.  On DTensor
+activations the layer always runs as such a region
+(:func:`_moe_region`, a ``local_map``): each rank routes the tokens it
+holds, runs the expert GEMMs on its slice of the experts (EP) or of
+``d_ff`` (TP), and the partial outputs are summed over "model".
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .layers import dense_init, randn
+from .layers import dense_init, is_dtensor, local_region, randn
 
-__all__ = ["moe_init", "moe_apply", "moe_capacity"]
+__all__ = ["moe_init", "moe_apply", "moe_capacity", "set_moe_block_dispatch",
+           "set_moe_shard_map"]
+
+# Hook: dispatch tokens in ``n_blocks`` independent blocks whose leading
+# axis is sharded over the data axes, with per-block routing capacity, so
+# the dispatch stays shard-local.  ``sharding`` (mesh, placements) is the
+# (nb, T/nb, D) block stack's: on DTensors the region realizes it, one
+# block per data shard; ``w_in``/``w_out`` (mesh, placements) are the
+# expert weights' at use.
+_MOE_BLOCKS = {"n": None, "sharding": None, "w_in": None, "w_out": None}
+
+# Hook: the MoE layer as an explicit-collective region over ``mesh``:
+# per-shard local dispatch (local capacity) over the ``dp`` axes, TP
+# expert GEMMs over ``tp``, one sum over ``tp`` for the output and one
+# mean over all axes for the aux loss.
+_MOE_SHARD_MAP = {"mesh": None, "dp": None, "tp": None}
+
+
+def set_moe_block_dispatch(n_blocks, sharding, w_in=None, w_out=None) -> None:
+    _MOE_BLOCKS["n"] = n_blocks
+    _MOE_BLOCKS["sharding"] = sharding
+    _MOE_BLOCKS["w_in"] = w_in
+    _MOE_BLOCKS["w_out"] = w_out
+
+
+def set_moe_shard_map(mesh, dp, tp="model") -> None:
+    _MOE_SHARD_MAP["mesh"] = mesh
+    _MOE_SHARD_MAP["dp"] = dp
+    _MOE_SHARD_MAP["tp"] = tp
 
 
 def moe_init(gen, cfg: ArchConfig, device=None):
@@ -37,10 +76,12 @@ def moe_capacity(cfg: ArchConfig, T: int) -> int:
     return min(cap, T)
 
 
-def _dispatch_block(xt, p, cfg: ArchConfig, cap: int):
+def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None):
     """Token-choice top-k dispatch + expert GEMMs for one token block.
 
-    xt: (Tb, D) -> (y: (Tb, D), aux: scalar).
+    xt: (Tb, D) -> (y: (Tb, D), aux: scalar).  ``experts=(e0, n)``: the
+    expert weights in ``p`` are experts ``e0 .. e0+n-1`` only (EP), and
+    ``y`` sums only their outputs.
     """
     E, K = cfg.n_experts, cfg.top_k
     Tb, D = xt.shape
@@ -74,6 +115,14 @@ def _dispatch_block(xt, p, cfg: ArchConfig, cap: int):
     buf.index_add_(0, flat, contrib)
     buf = buf.view(E, cap, D)
 
+    wmask = keep
+    if experts is not None:
+        e0, n = experts
+        buf = buf[e0:e0 + n]
+        local = (eflat >= e0) & (eflat < e0 + n)
+        wmask = keep & local
+        flat = torch.where(local, flat - e0 * cap, torch.zeros_like(flat))
+
     # grouped expert GEMMs (weights cast to the activation dtype at use)
     g = torch.bmm(buf, p["w_gate"].to(xt.dtype))
     u = torch.bmm(buf, p["w_up"].to(xt.dtype))
@@ -81,15 +130,136 @@ def _dispatch_block(xt, p, cfg: ArchConfig, cap: int):
     out = torch.bmm(h, p["w_down"].to(xt.dtype))
 
     # combine
-    y = out.reshape(E * cap, D)[flat] * (
-        gate_w.reshape(-1)[:, None] * keep[:, None]).to(xt.dtype)
+    y = out.reshape(-1, D)[flat] * (
+        gate_w.reshape(-1)[:, None] * wmask[:, None]).to(xt.dtype)
     y = y.reshape(Tb, K, D).sum(dim=1)
     return y, aux
+
+
+def _mesh_dims(mesh, axes) -> list:
+    names = list(mesh.mesh_dim_names)
+    return [names.index(a) for a in ((axes,) if isinstance(axes, str) else axes)]
+
+
+def _moe_region(p, cfg: ArchConfig, x, mesh, dp, tp: str, cap: int,
+                wdtype: torch.dtype, allow_ep: bool = True):
+    """The MoE layer on DTensor activations as one ``local_map`` region
+    over ``mesh``.  Tokens: sharded over the ``dp`` axes (each shard
+    routes its own with capacity ``cap``), or, with ``dp`` None,
+    replicated (every rank routes all of them: the global capacity of
+    the plain layer).  Experts: split over ``tp`` by expert (EP, when
+    they divide it as the sharding rules place them) or by ``d_ff``
+    (TP; always with ``allow_ep`` False), else replicated.  The partial
+    outputs are summed over ``tp`` (DTensor's all-reduce of a
+    ``Partial``); the aux loss is averaged over the axes the work is
+    split on (JAX's ``pmean`` over every axis of its shard_map: the same
+    value).  The weights enter in ``wdtype``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    B, S, D = x.shape
+    E, Fd = cfg.n_experts, cfg.d_ff
+    nd = mesh.ndim
+    t = _mesh_dims(mesh, tp)[0]
+    n_tp = mesh.size(t)
+    ep = allow_ep and E >= n_tp and E % n_tp == 0
+    split = ep or Fd % n_tp == 0
+    rep = [Replicate()] * nd
+
+    def on_tp(dim):
+        pl = list(rep)
+        if split:
+            pl[t] = Shard(dim)
+        return tuple(pl)
+
+    x_pl, y_pl = list(rep), list(rep)
+    if dp is not None:
+        for i in _mesh_dims(mesh, dp):
+            x_pl[i] = y_pl[i] = Shard(0)
+    if split:
+        y_pl[t] = Partial()
+    # the aux loss: averaged over the mesh dims the work is split on, as a
+    # sum of each rank's aux / n (so each rank's gradient through it is
+    # its 1/n share, as the inputs' gradients are shares)
+    split_dims = ({i for i, q in enumerate(x_pl) if q.is_shard()}
+                  | ({t} if split else set()))
+    n_split = math.prod(mesh.size(i) for i in split_dims)
+    aux_pl = tuple(Partial() if i in split_dims else Replicate()
+                   for i in range(nd))
+    w_in = on_tp(0 if ep else 2)     # (E, D, F)
+    w_out = on_tp(0 if ep else 1)    # (E, F, D)
+    n_local = E // n_tp if ep else E
+
+    def local(xl, router, wg, wu, wd):
+        Bl, Sl, _ = xl.shape
+        experts = None
+        if ep:
+            e0 = mesh.get_local_rank(t) * n_local
+            experts = (e0, n_local)
+        pl = {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd}
+        y, aux = _dispatch_block(xl.reshape(Bl * Sl, D), pl, cfg, cap,
+                                 experts)
+        return y.reshape(Bl, Sl, D), aux / n_split
+
+    ws = [p["w_gate"], p["w_up"], p["w_down"]]
+    for i, key in ((0, "w_in"), (1, "w_in"), (2, "w_out")):
+        if _MOE_BLOCKS[key] is not None:
+            ws[i] = ws[i].redistribute(*_MOE_BLOCKS[key])
+    y, aux = local_region(
+        local, (x, *(w.to(wdtype) for w in [p["router"]] + ws)),
+        (tuple(x_pl), tuple(rep), w_in, w_in, w_out),
+        (tuple(y_pl), aux_pl), mesh)
+    return (y.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                  for q in y_pl]),
+            aux.redistribute(mesh, rep))
+
+
+def _moe_shard_map_apply(p, cfg: ArchConfig, x):
+    """Explicit-collective MoE (mixtral-class, experts replicated, TP on
+    d_ff): each (dp, tp) shard dispatches its own tokens locally and the
+    row-parallel w_down contraction sums once over the tp axis."""
+    mesh, dp, tp = (_MOE_SHARD_MAP[k] for k in ("mesh", "dp", "tp"))
+    B, S, D = x.shape
+    n_dp = math.prod(mesh.size(i) for i in _mesh_dims(mesh, dp))
+    # the weights enter in bf16, as JAX casts them for its shard_map
+    return _moe_region(p, cfg, x, mesh, dp, tp,
+                       moe_capacity(cfg, (B // n_dp) * S), torch.bfloat16,
+                       allow_ep=False)
 
 
 def moe_apply(p, cfg: ArchConfig, x: torch.Tensor):
     """x: (B, S, D) -> (y: (B, S, D), aux_loss: scalar)."""
     B, S, D = x.shape
     T = B * S
-    y, aux = _dispatch_block(x.reshape(T, D), p, cfg, moe_capacity(cfg, T))
+
+    mesh = _MOE_SHARD_MAP["mesh"]
+    if mesh is not None and cfg.n_experts < mesh.size(
+            _mesh_dims(mesh, _MOE_SHARD_MAP["tp"])[0]):
+        return _moe_shard_map_apply(p, cfg, x)
+
+    nb = _MOE_BLOCKS["n"] or 1
+    if T % nb or (nb > 1 and B % nb):
+        nb = 1
+    cap = moe_capacity(cfg, T // nb)
+
+    if is_dtensor(x):
+        # block-local dispatch: one block per data shard of the batch
+        mesh = x.device_mesh
+        dp = None
+        if nb > 1:
+            dp = tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+            n_dp = math.prod(mesh.size(i) for i in _mesh_dims(mesh, dp))
+            if nb != n_dp:
+                raise ValueError(f"{nb} dispatch blocks on DTensors need one "
+                                 f"per data shard ({n_dp})")
+        return _moe_region(p, cfg, x, mesh, dp, "model", cap, x.dtype)
+
+    if nb == 1:
+        y, aux = _dispatch_block(x.reshape(T, D), p, cfg, cap)
+        return y.reshape(B, S, D), aux
+
+    # block-local dispatch (JAX vmaps the blocks): each with its own capacity
+    xb = x.reshape(nb, T // nb, D)
+    outs = [_dispatch_block(xb[i], p, cfg, cap) for i in range(nb)]
+    y = torch.stack([o[0] for o in outs])
+    aux = torch.stack([o[1] for o in outs]).mean()
     return y.reshape(B, S, D), aux

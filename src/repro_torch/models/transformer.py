@@ -18,6 +18,8 @@ caller may keep and reuse it.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -25,8 +27,9 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from .layers import (
-    chunked_attention, decode_attention, dense, dense_init, embed_init,
-    gelu_mlp, gelu_mlp_init, layernorm, layernorm_init, remat_call, rmsnorm,
+    _head_placements, chunked_attention, constrain_acts, decode_attention,
+    dense, dense_init, embed_init, gelu_mlp, gelu_mlp_init, is_dtensor,
+    kv_groups, layernorm, layernorm_init, local_region, remat_call, rmsnorm,
     rmsnorm_init, rope, swiglu, swiglu_init,
 )
 
@@ -36,7 +39,7 @@ __all__ = [
     "stack_init", "dense_params_init", "dense_forward", "dense_init_cache",
     "dense_decode_step", "dense_prefill", "kv_cache_init", "positions_at",
     "tree_map", "tree_leaves", "tree_index", "tree_unbind", "tree_stack",
-    "scan_layers",
+    "scan_layers", "embed_lookup",
 ]
 
 
@@ -161,20 +164,48 @@ def attn_apply(
     """
     B, S, D = x.shape
     hd = cfg.d_head
-    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     src = x if kv_x is None else kv_x
-    Skv = src.shape[1]
-    k = dense(p["wk"], src).reshape(B, Skv, cfg.n_kv_heads, hd)
-    v = dense(p["wv"], src).reshape(B, Skv, cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rmsnorm(p["qnorm"], q)
-        k = rmsnorm(p["knorm"], k)
+    q = dense(p["wq"], x)
+    k = dense(p["wk"], src)
+    v = dense(p["wv"], src)
+    norms = (p["qnorm"], p["knorm"]) if cfg.qk_norm else None
+    core = functools.partial(_attn_core, hd=hd, theta=cfg.rope_theta,
+                             causal=causal, use_rope=use_rope, window=window,
+                             self_kv=kv_x is None)
+    if is_dtensor(q):
+        o, new_cache = _sharded_attn_core(core, cfg, q, k, v, norms,
+                                          positions, cache)
+    else:
+        o, new_cache = core(q, k, v, norms, positions, cache)
+    y = dense(p["wo"], o.reshape(B, S, cfg.n_heads * hd))
+    return y, new_cache
+
+
+def _attn_core(q, k, v, norms, positions, cache, *, hd: int, theta: float,
+               causal: bool, use_rope: bool, window, self_kv: bool,
+               groups=None):
+    """Attention after the projections: q (B, S, H·hd), k/v (B, Skv,
+    G·hd) -> (o (B, S, H, hd), new cache).  ``groups=(g0, g1)``: attend
+    with kv groups g0..g1-1 only (this rank's query heads'), after the
+    cache took every group."""
+    B, S = q.shape[:2]
+    Skv = k.shape[1]
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, Skv, -1, hd)
+    v = v.reshape(B, Skv, -1, hd)
+    if norms is not None:
+        q = rmsnorm(norms[0], q)
+        k = rmsnorm(norms[1], k)
     if positions is None:
-        positions = torch.arange(S, device=x.device)
+        positions = torch.arange(S, device=q.device)
     if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        if kv_x is None:
-            k = rope(k, positions[:Skv], cfg.rope_theta)
+        q = rope(q, positions, theta)
+        if self_kv:
+            k = rope(k, positions[:Skv], theta)
+
+    def attend_groups(k, v):
+        return (k, v) if groups is None else (k[:, :, groups[0]:groups[1]],
+                                              v[:, :, groups[0]:groups[1]])
 
     new_cache = cache
     if cache is not None and S == 1:
@@ -185,7 +216,8 @@ def attn_apply(
         idx = slot.reshape(1).long()
         ck = cache["k"].index_copy(1, idx, k.to(cache["k"].dtype))
         cv = cache["v"].index_copy(1, idx, v.to(cache["v"].dtype))
-        o = decode_attention(q, ck, cv, torch.clamp(pos + 1, max=L))
+        o = decode_attention(q, *attend_groups(ck, cv),
+                             torch.clamp(pos + 1, max=L))
         new_cache = {"k": ck, "v": cv, "len": pos + 1}
     else:
         if cache is not None:
@@ -205,9 +237,49 @@ def attn_apply(
                 ck[:, :nt] = kt
                 cv[:, :nt] = vt
             new_cache = {"k": ck, "v": cv, "len": cache["len"] + S}
-        o = chunked_attention(q, k, v, causal=causal, window=window)
-    y = dense(p["wo"], o.reshape(B, S, cfg.n_heads * hd))
-    return y, new_cache
+        o = chunked_attention(q, *attend_groups(k, v), causal=causal,
+                              window=window)
+    return o, new_cache
+
+
+def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
+                       cache):
+    """:func:`_attn_core` on DTensor projections as one head-parallel
+    region: each rank takes its batch rows and query heads (with every kv
+    group where the kv heads do not split over "model", so the cache
+    stays whole on each rank), the cache with its full length; the new
+    cache goes back to the cache's own placements."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = q.device_mesh
+    H, G = cfg.n_heads, cfg.n_kv_heads
+    q_pl, kv_pl, t, kv_rep = _head_placements(mesh, q.shape[0], H, G)
+    rep = (Replicate(),) * mesh.ndim
+    leaves = [] if cache is None else [cache["k"], cache["v"], cache["len"]]
+    back = [c.placements for c in leaves]
+
+    def local(ql, kl, vl, nq, nk, pos, *cl):
+        groups = None
+        if kv_rep:
+            groups = kv_groups(mesh, t, ql.shape[-1] // cfg.d_head, H // G)
+        lc = None if not cl else {"k": cl[0], "v": cl[1], "len": cl[2]}
+        o, nc = core(ql, kl, vl, None if nq is None else (nq, nk), pos, lc,
+                     groups=groups)
+        return (o,) if nc is None else (o, nc["k"], nc["v"], nc["len"])
+
+    def pl_of(x, pl):
+        return pl if is_dtensor(x) else None
+
+    args = (q, k, v, *(norms or (None, None)), positions, *leaves)
+    in_pl = (q_pl, kv_pl, kv_pl, *(pl_of(n, rep) for n in (norms or (None, None))),
+             pl_of(positions, rep), *((kv_pl, kv_pl, rep) if leaves else ()))
+    out = local_region(local, args, in_pl,
+                       (q_pl,) + ((kv_pl, kv_pl, rep) if leaves else ()), mesh)
+    if not leaves:
+        return out[0], None
+    nc = {key: x.redistribute(mesh, pl)
+          for key, x, pl in zip(("k", "v", "len"), out[1:], back)}
+    return out[0], nc
 
 
 def block_init(gen, cfg: ArchConfig, device=None):
@@ -226,8 +298,8 @@ def block_apply(p, cfg: ArchConfig, x, positions=None, cache=None,
         positions=positions, causal=causal, cache=cache, window=window,
         use_rope=use_rope,
     )
-    x = x + h
-    x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
+    x = constrain_acts(x + h)
+    x = constrain_acts(x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x)))
     return x, new_cache
 
 
@@ -250,14 +322,63 @@ def dense_params_init(gen, cfg: ArchConfig, device=None):
     return p
 
 
+def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``; on a DTensor table, a vocab-parallel region."""
+    if is_dtensor(embed):
+        return _sharded_embed(embed, tokens)
+    return embed[tokens]
+
+
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens].to(torch.bfloat16)
+    return constrain_acts(embed_lookup(p["embed"], tokens).to(torch.bfloat16))
+
+
+def _sharded_embed(embed, tokens):
+    """The embedding lookup on a DTensor (V, D) table as a vocab-parallel
+    region (Megatron's): each rank looks its tokens up in the vocab rows
+    it holds over "model" (zeros for the others, summed over "model"),
+    the table gathered over the data axes; the tokens' batch rows stay
+    where they are.  DTensor's own gather and its backward
+    (``index_put``) fail on a sharded table."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = embed.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    V = embed.shape[0]
+    e_pl = [Replicate()] * mesh.ndim
+    o_pl = [Replicate()] * mesh.ndim
+    t_pl = None
+    t = names.index("model") if "model" in names else None
+    split = t is not None and mesh.size(t) > 1 and V % mesh.size(t) == 0
+    if split:
+        e_pl[t], o_pl[t] = Shard(0), Partial()
+    if is_dtensor(tokens):
+        t_pl = [Replicate()] * mesh.ndim
+        dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+        if dp and tokens.shape[0] % math.prod(mesh.size(i) for i in dp) == 0:
+            for i in dp:
+                t_pl[i] = o_pl[i] = Shard(0)
+
+    def local(e, tok):
+        if not split:
+            return e[tok]
+        v0 = mesh.get_local_rank(t) * e.shape[0]
+        idx = tok.long() - v0
+        own = (idx >= 0) & (idx < e.shape[0])
+        rows = e[idx.clamp(0, e.shape[0] - 1)]
+        return rows * own[..., None].to(rows.dtype)
+
+    out = local_region(local, (embed, tokens),
+                       (tuple(e_pl), None if t_pl is None else tuple(t_pl)),
+                       (tuple(o_pl),), mesh)
+    return out.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                   for q in o_pl])
 
 
 def head_logits(p, cfg: ArchConfig, x):
     if cfg.tie_embeddings:
-        return x @ p["embed"].T.to(x.dtype)
-    return x @ p["head"].to(x.dtype)
+        return dense(p["embed"].T, x)
+    return dense(p["head"], x)
 
 
 def dense_forward(p, cfg: ArchConfig, tokens: torch.Tensor,

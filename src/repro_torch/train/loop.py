@@ -10,6 +10,10 @@ with error feedback, straggler watchdog, checkpoint/restart (the port of
   zeros, then loss and grads are divided by their count.
 * **gradient compression** — optional bf16 (or int8 with a per-tensor
   scale) round trip with error-feedback residuals.
+* **sharded state** — params, moments and batch may be DTensors placed
+  by the launch layer's rules; the step (backward and remat included)
+  then runs under :func:`~repro_torch.models.layers.sharded_scope`, and
+  a microbatch is the same slice of every rank's local batch rows.
 * **donation** — ``donate=True`` writes the new params, optimizer state
   and residuals into the old tensors (what ``donate_argnums`` lets XLA
   do); ``donate=False`` leaves the caller's tensors alone.  Both give
@@ -32,6 +36,7 @@ import torch
 
 from ..checkpoint import CheckpointManager
 from ..core.device import resolve_device
+from ..models.layers import is_dtensor, sharded_scope
 from ..models.transformer import tree_map
 from ..optim import AdamW, OptState
 
@@ -89,6 +94,21 @@ def _map_state(fn, tree):
     return fn(tree)
 
 
+def _microbatch(v, i: int, M: int):
+    """Microbatch ``i`` of ``M``: rows ``i·B/M .. (i+1)·B/M`` of a plain
+    batch leaf; of a DTensor leaf, that slice of every rank's local rows
+    (so no rank gathers the batch)."""
+    if not is_dtensor(v):
+        n = v.shape[0] // M
+        return v[i * n:(i + 1) * n]
+    from torch.distributed.tensor import DTensor
+
+    loc = v.to_local()
+    n = loc.shape[0] // M
+    return DTensor.from_local(loc[i * n:(i + 1) * n], v.device_mesh,
+                              v.placements, run_check=False)
+
+
 class Trainer:
     def __init__(self, model, optimizer: AdamW, tc: TrainConfig,
                  donate: bool = True, device=None):
@@ -102,7 +122,7 @@ class Trainer:
 
     def value_and_grad(self, params, batch):
         """(loss, grads tree) of ``model.loss`` at ``params``."""
-        with torch.enable_grad():
+        with torch.enable_grad(), sharded_scope(params, batch):
             live = tree_map(lambda p: p.detach().requires_grad_(), params)
             leaves = []
             tree_map(leaves.append, live)
@@ -117,12 +137,11 @@ class Trainer:
         M = self.tc.microbatches
         if M == 1:
             return self.value_and_grad(params, batch)
-        g = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+        g = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
         loss = 0.0
         for i in range(M):
-            mb = {k: v[i * (v.shape[0] // M):(i + 1) * (v.shape[0] // M)]
-                  for k, v in batch.items()}
+            mb = {k: _microbatch(v, i, M) for k, v in batch.items()}
             li, gi = self.value_and_grad(params, mb)
             tree_map(torch.Tensor.add_, g, gi)
             loss = loss + li
@@ -131,6 +150,10 @@ class Trainer:
 
     def step(self, params, opt_state: OptState, residual, batch):
         """One training step: ``(params, opt_state, residual, loss)``."""
+        with sharded_scope(params, opt_state, batch):
+            return self._step(params, opt_state, residual, batch)
+
+    def _step(self, params, opt_state: OptState, residual, batch):
         tc = self.tc
         loss, g = self.grads(params, batch)
         g, new_res = compress_grads(g, residual, tc.grad_compression)

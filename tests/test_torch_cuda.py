@@ -786,3 +786,32 @@ def test_train_cli_on_the_card(dev, capsys):
     assert len(losses) == 20 and np.isfinite(losses).all()
     assert "first-10-mean" in out and "last-10-mean" in out
     assert np.mean(losses[-2:]) < np.mean(losses[:2])
+
+
+def test_lm_launch_on_a_one_rank_nccl_mesh_at_smoke_size(dev, tmp_path):
+    """Phase lm_launch's (a)-(c) at qwen3's smoke size, in a process of its
+    own (one NCCL group per process; ``CUBLAS_WORKSPACE_CONFIG`` set for
+    deterministic algorithms): 3 Trainer steps on a (1, 1) DTensor mesh
+    over NCCL bitwise to the plain Trainer's, the dry run's FLOPs equal
+    to the real step's, and the checkpointed state resharded bitwise."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    code = ("import json, sys, chip_smoke; print(json.dumps("
+            "chip_smoke.lm_launch_card(sys.argv[1], smoke=True), "
+            "default=str))")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["backend"] == "nccl" and rec["mesh"] == [1, 1]
+    assert rec["losses"] == rec["plain_losses"]
+    assert rec["leaves_not_bitwise"] == 0 and rec["reshard_not_bitwise"] == 0
+    assert rec["flop_rel_diff"] == 0.0
+    assert not os.path.exists(os.path.join(tmp_path, "lm_launch_ckpt"))

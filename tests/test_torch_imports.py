@@ -50,7 +50,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.optim", "repro_torch.optim.adamw",
             "repro_torch.train", "repro_torch.train.loop",
             "repro_torch.data", "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} \
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+            "repro_torch.launch.op_analysis",
+            "repro_torch.launch.collectives"} \
         <= set(names)
     code = (
         "import importlib, sys\n"
@@ -96,3 +99,22 @@ def test_import_pattern_catches_what_it_should():
     assert not _IMPORT.search("import repro_torch")
     assert not _IMPORT.search("from repro_torch.core import plan")
     assert not _IMPORT.search("# see repro.core.plan")
+
+
+def test_launch_modules_start_no_process_group():
+    """Importing the launch layer (the mesh, the dry run, the rules)
+    touches no process-group or device state, as JAX's ``mesh.py``
+    touches no device state."""
+    code = (
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.sharding, repro_torch.launch.elastic\n"
+        "assert dist.is_available() and not dist.is_initialized()\n"
+        "import sys\n"
+        "assert 'torch.testing._internal.distributed.fake_pg' not in sys.modules\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
