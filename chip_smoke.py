@@ -156,7 +156,11 @@ Phases, none of them caught — any failure exits non-zero:
    ``reshard_restored``: every leaf bitwise.  (d) meanwhile, on the
    host: qwen3-0.6b ``train_4k`` traced on the (16, 16) production mesh
    of a fake group of 256 ranks: trace seconds, per-device FLOPs,
-   bytes, memory, collectives and the roofline terms.  No kernel of
+   bytes, memory, collectives and the roofline terms; then qwen3-0.6b
+   ``decode_32k`` on the same mesh.  Gates: the train cell's temp within
+   2x the JAX package's (31.2 GB), no all-gather as large as a rank's
+   slab of the vocab-sharded logits, and in the decode cell no
+   all-gather of the length-sharded cache.  No kernel of
    ``repro_torch.kernels`` launches.
 
 Every phase records the host's RAM peak (``MemTotal - MemAvailable``,
@@ -292,6 +296,14 @@ BF16_FLOPS_PER_S = 989e12
 LM_LAUNCH_STEPS, LM_LAUNCH_PEAK_TOL, LM_LAUNCH_FLOP_RTOL = 3, 0.25, 1e-9
 LM_LAUNCH_PROD = ("qwen3-0.6b", "train_4k")
 LM_LAUNCH_TIMEOUT_S = 600
+# the production cells' partitioning gates: the train cell's temp within
+# 2x the JAX package's record of it (15.6 GB on (16, 16)), and no
+# all-gather of the vocab-sharded logits (none as large as a rank's
+# slab of them) nor, in the decode cell, of the length-sharded cache
+# (none with its (kv heads, head dim) trailing dims as large as one
+# layer's slice of a rank)
+LM_LAUNCH_PROD_TEMP_GB = 31.2
+LM_LAUNCH_DECODE = ("qwen3-0.6b", "decode_32k")
 RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
 
@@ -2139,14 +2151,49 @@ def _moments_like(opt, params):
 
 
 def lm_launch_production() -> dict:
-    """(d) of phase lm_launch, in a process of its own: one production
-    dry-run cell on a fake group of 256 ranks, fake CUDA tensors."""
+    """(d) of phase lm_launch, in a process of its own: two production
+    dry-run cells on a fake group of 256 ranks, fake CUDA tensors, the
+    decode cell's record under ``"decode"``."""
     from repro_torch.launch.dryrun import lower_cell
 
     t0 = time.perf_counter()
     rec = lower_cell(*LM_LAUNCH_PROD, False, device="cuda")
     rec["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["decode"] = lower_cell(*LM_LAUNCH_DECODE, False, device="cuda")
+    rec["decode"]["wall_s"] = time.perf_counter() - t0
     return rec
+
+
+def production_gates(rec: dict) -> dict:
+    """The (d) records' partitioning gates (see LM_LAUNCH_PROD_TEMP_GB):
+    the numbers each is judged on, and whether it holds."""
+    from repro_torch.configs import SHAPES
+
+    cfg = get_config(LM_LAUNCH_PROD[0])
+    train, dec = SHAPES[LM_LAUNCH_PROD[1]], SHAPES[LM_LAUNCH_DECODE[1]]
+    mesh = rec["mesh"]
+    n_dp, n_tp = mesh["data"], mesh["model"]
+    slab = train.global_batch // n_dp * train.seq_len * cfg.vocab // n_tp
+    cache = (dec.global_batch // n_dp * dec.seq_len * cfg.n_kv_heads
+             * cfg.d_head // n_tp)
+    gathers = [c for c in rec["largest_collectives"]
+               if c["kind"] == "all-gather"]
+    kv = (cfg.n_kv_heads, cfg.d_head)
+    cache_gathers = [c for c in rec["decode"]["largest_collectives"]
+                     if c["kind"] == "all-gather"
+                     and tuple(c["shape"][-2:]) == kv]
+    out = {
+        "temp_gb": rec["memory"]["temp_size_in_bytes"] / 1e9,
+        "largest_all_gather": max((c["numel"] for c in gathers), default=0),
+        "logits_slab": slab,
+        "largest_cache_gather": max((c["numel"] for c in cache_gathers),
+                                    default=0),
+        "cache_slice": cache}
+    out["temp_ok"] = out["temp_gb"] <= LM_LAUNCH_PROD_TEMP_GB
+    out["vocab_ok"] = out["largest_all_gather"] < slab
+    out["cache_ok"] = out["largest_cache_gather"] < cache
+    return out
 
 
 def _json_child(code: str, env=None):
@@ -2223,6 +2270,26 @@ def phase_lm_launch(out_dir: str) -> None:
             f"{p['roofline']['t_memory']:.4f} s, collective "
             f"{p['roofline']['t_collective']:.4f} s, dominant "
             f"{p['roofline']['dominant']}")
+        dec = p["decode"]
+        g = rec["production_gates"] = production_gates(p)
+        log(f"lm_launch production dry run {dec['arch']} {dec['shape']} on "
+            f"{dec['mesh']}: trace {dec['compile_s']} s, per device "
+            f"{dec['cost']['flops'] / 1e12:.4f} TFLOP, temp "
+            f"{dec['memory']['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
+            + ", ".join(f"{k} {v / 1e9:.3f} GB"
+                        for k, v in dec["collectives"].items() if v))
+        log(f"lm_launch partitioning gates: train temp {g['temp_gb']:.2f} GB "
+            f"(<= {LM_LAUNCH_PROD_TEMP_GB}); largest all-gather "
+            f"{g['largest_all_gather']} elements (< the logits slab "
+            f"{g['logits_slab']}); decode's largest cache-shaped all-gather "
+            f"{g['largest_cache_gather']} (< one layer's cache slice "
+            f"{g['cache_slice']})")
+        check(g["temp_ok"], "lm_launch: train_4k temp over 2x JAX's",
+              g["temp_gb"])
+        check(g["vocab_ok"], "lm_launch: an all-gather of the logits",
+              p["largest_collectives"])
+        check(g["cache_ok"], "lm_launch: an all-gather of the cache",
+              dec["largest_collectives"])
         launched = counts()
         check(sum(launched.values()) == 0, "a kernel launched", launched)
         RESULT["lm_launch"] = rec

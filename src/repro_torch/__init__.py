@@ -8,11 +8,14 @@ the stencil service of ``repro.serve`` and the elastic re-planning of
 ``repro.launch.elastic``, on PyTorch tensors, with the fused-stencil
 kernels written by hand for Hopper (``repro_torch.kernels``); and the
 LM stack's serve path (``repro_torch.configs``, ``repro_torch.models``,
-``repro_torch.serve.decode``) for all six model families, and its
+``repro_torch.serve.decode``) for all six model families, its
 training path (``repro_torch.optim``, ``.train``, ``.data`` and
 ``.launch.train``: AdamW, the Trainer with layer remat, the synthetic
-data pipeline and the train CLI).  It imports neither JAX nor
-``repro``.  Importing it builds and loads no
+data pipeline and the train CLI), and its launch layer
+(``repro_torch.launch``: production meshes, the sharding rules over
+DTensor, elastic resharding, the op-level cost counter and the
+fake-tensor dry run, with the models' sharded regions).  It imports
+neither JAX nor ``repro``.  Importing it builds and loads no
 kernel and starts no process: the CUDA library is built the first time
 a kernel launches, and rank processes start with their mesh.  Entry
 points run on the GPU unless the caller passes ``device="cpu"``.
@@ -37,6 +40,10 @@ from .core import (  # noqa: F401
     run_reference,
     Hardware,
     H100_SXM,
+    RTX3080_PAPER,
+    TPU_V5E,
+    autotune,
+    autotune_box,
     autotune_sharded,
     tune,
     TuneSpec,
@@ -79,6 +86,10 @@ __all__ = [
     "run_reference",
     "Hardware",
     "H100_SXM",
+    "RTX3080_PAPER",
+    "TPU_V5E",
+    "autotune",
+    "autotune_box",
     "autotune_sharded",
     "tune",
     "TuneSpec",

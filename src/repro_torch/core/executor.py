@@ -56,6 +56,7 @@ from .reference import multi_step_band, multi_step_box
 __all__ = [
     "EagerExecutor", "DoubleBufferedExecutor", "DryRunExecutor",
     "ShardedSimExecutor", "ShardMapExecutor", "get_executor", "EXECUTORS",
+    "PLAN_EXECUTORS",
 ]
 
 # fused-step implementation signature:
@@ -506,6 +507,10 @@ class ShardMapExecutor:
 EXECUTORS = {e.name: e for e in
              (EagerExecutor, DoubleBufferedExecutor, DryRunExecutor,
               ShardedSimExecutor, ShardMapExecutor)}
+
+# executors that interpret single-device ExecutionPlans (what
+# benchmarks.run --exec sweeps); the sharded ones take a ShardedPlan
+PLAN_EXECUTORS = ("eager", "double_buffered")
 
 
 def get_executor(name: str, fused_step: Optional[FusedStep] = None,

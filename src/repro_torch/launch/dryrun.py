@@ -32,8 +32,8 @@ default) fakes CUDA tensors; ``device="cpu"`` fakes CPU ones, for a
 machine without a card.  ``mesh_shape`` replaces the production mesh
 (``--mesh 2x2``).  Sequence-sharded attention (``attn_seq_shard``)
 sets the q-chunk alignment and the batched q-chunk path on every rank;
-on DTensors the heads, not the q chunks, stay the axis split over
-"model" (attention runs as a head-parallel region).
+on DTensors attention splits its heads over "model" where they divide
+it and its query rows where they do not, with or without the flag.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
@@ -77,7 +77,8 @@ from .sharding import (
 )
 
 __all__ = ["lower_cell", "lower_stencil", "main", "register_hooks",
-           "clear_hooks", "BF16_PEAK", "FP32_PEAK", "HBM_BW", "LINK_BW"]
+           "clear_hooks", "largest_collectives", "BF16_PEAK", "FP32_PEAK",
+           "HBM_BW", "LINK_BW"]
 
 # One H100 SXM at 700 W, NVIDIA's data sheet (dense, no sparsity); no
 # constant here was measured.
@@ -314,8 +315,24 @@ def _lower(cfg, arch, shape_name, shape, multi_pod, mesh, device,
         "step_tokens": step_tokens,
         "memory": mem, "cost": cost, "cost_xla_raw": None,
         "collectives": colls, "ops": mode.ops,
+        "largest_collectives": largest_collectives(mode),
         "roofline": roof,
     }
+
+
+def largest_collectives(mode, top: int = 8) -> list:
+    """The ``top`` largest collective results of a traced cell, by the
+    bytes of one result: kind, shape, dtype, count, element count of one
+    result and bytes of all; an all-gather's result is the gathered
+    tensor (stacked on dim 0)."""
+    out = []
+    for (kind, shape, dtype), n in mode.collective_shapes.items():
+        numel = math.prod(shape)
+        size = torch.empty((), dtype=getattr(torch, dtype.split(".")[-1]))
+        out.append({"kind": kind, "shape": list(shape), "dtype": dtype,
+                    "count": n, "numel": numel,
+                    "bytes": n * numel * size.element_size()})
+    return sorted(out, key=lambda r: -r["bytes"] / r["count"])[:top]
 
 
 def lower_stencil(multi_pod: bool, name: str = "box2d1r", k_ici: int = 8,

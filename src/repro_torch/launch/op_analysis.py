@@ -21,9 +21,11 @@ The rules are ``hlo_analysis.py``'s, per aten op:
   intermediates never reach HBM, while eager PyTorch materialises every
   op's result, so here every op but a view (or an ``empty``) counts.
 * **collectives** — the result bytes of each ``_c10d_functional``
-  collective (what DTensor's redistributions issue), under JAX's op
-  names, and of each ``c10d`` send as a ``collective-permute``; added to
-  bytes once as well.
+  collective (what DTensor's redistributions and the models' regions
+  issue), under JAX's op names, and of each ``c10d`` send as a
+  ``collective-permute``; added to bytes once as well.  The result
+  shapes are kept too (:attr:`CostMode.collective_shapes`), so a record
+  can say which tensor a collective moved.
 
 There are no loops to multiply: eager execution runs every layer and
 every step, so the counts are trip-count aware by construction.
@@ -153,6 +155,8 @@ class CostMode(TorchDispatchMode):
         self.peak_bytes = 0
         self._live: Dict[int, int] = {}
         self._shadow: set = set()   # ids of DTensor's global-shape stand-ins
+        # (kind, result shape, dtype) -> count, of every collective
+        self.collective_shapes: Dict[tuple, int] = {}
 
     @classmethod
     def _counted_type(cls, t) -> bool:
@@ -207,6 +211,10 @@ class CostMode(TorchDispatchMode):
                 n = sum(_nbytes(t) for t in _tensors(args[0]))
             else:
                 n = sum(_nbytes(t) for t in outs)
+                for t in outs:
+                    key = (kind, tuple(t.shape), str(t.dtype))
+                    self.collective_shapes[key] = (
+                        self.collective_shapes.get(key, 0) + 1)
             c.collectives[kind] += n
             c.bytes += n
             return

@@ -39,8 +39,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from .layers import (
-    chunked_attention, dense, dense_init, embed_init, is_dtensor, remat_call,
-    sharded_scope, split_heads,
+    all_reduce, chunked_attention, dense, dense_init, embed_init, is_dtensor,
+    local_region, remat_call, shard_offset, sharded_scope, split_heads,
 )
 from .mamba2 import mamba_apply, mamba_decode_step, mamba_init, mamba_init_state
 from .moe import moe_apply, moe_init
@@ -71,20 +71,84 @@ class Model:
         """Mean next-token cross entropy + 0.01 · aux.  The label's logit
         is a ``gather`` where JAX takes a one-hot masked sum: the same
         value and gradient, without a (B, S, V) mask.  On DTensor logits
-        it is JAX's masked sum, which keeps a vocab-sharded dim sharded
-        (DTensor's gather on it fails)."""
+        it is a vocab-parallel region (:func:`_sharded_nll`), which keeps
+        a vocab-sharded dim sharded, as JAX's masked sum does."""
         with sharded_scope(params, batch):
             logits, aux = self.forward(params, batch)
             labels = batch["labels"]
-            lf = logits.float()
-            lse = torch.logsumexp(lf, dim=-1)
-            if is_dtensor(lf):
-                vocab_iota = torch.arange(lf.shape[-1], device=lf.device)
-                onehot = labels[..., None] == vocab_iota
-                ll = torch.where(onehot, lf, 0.0).sum(dim=-1)
+            if is_dtensor(logits):
+                nll = _sharded_nll(logits, labels)
             else:
-                ll = lf.gather(-1, labels[..., None].long())[..., 0]
-            return (lse - ll).mean() + 0.01 * aux
+                nll = _nll(logits, labels)
+            return nll.mean() + 0.01 * aux
+
+
+def _nll(logits, labels):
+    """Per-token ``logsumexp - label logit`` in fp32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    return lse - lf.gather(-1, labels[..., None].long())[..., 0]
+
+
+def _sharded_nll(logits, labels):
+    """:func:`_nll` on DTensor logits as one region (Megatron's
+    vocab-parallel cross entropy): the logits keep their batch and vocab
+    shards, and each rank takes its local max, sum of exps and label
+    logit, reduced over the vocab's mesh dims (:class:`_VocabNLL`); an
+    uneven split (a vocab that does not divide) is taken as it is.
+    Where no mesh dim of size > 1 splits the vocab, the region runs
+    :func:`_nll` on the local tensor, the plain path's ops."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = logits.device_mesh
+    d = logits.ndim - 1
+    pl = tuple(Replicate() if q.is_partial() else q
+               for q in logits.placements)
+    vdims = [i for i, q in enumerate(pl)
+             if q.is_shard(d) and mesh.size(i) > 1]
+    v0 = shard_offset(logits.shape[d], mesh, vdims)
+    lab_pl = tuple(Replicate() if q.is_shard(d) else q for q in pl)
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+
+    def local(lg, lab):
+        if not vdims:
+            return _nll(lg, lab)
+        return _VocabNLL.apply(lg, lab, v0, mesh, vdims)
+
+    return local_region(local, (logits, labels), (pl, lab_pl), (lab_pl,),
+                        mesh)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Per-token ``logsumexp - label logit`` of one rank's vocab slice
+    ``lg`` (its first column is vocab entry ``v0``): max and sums reduced
+    over the vocab's mesh ``dims``.  The backward is local, ``(softmax -
+    onehot) · g`` on the slice, and recomputes the softmax from the
+    saved logits instead of keeping it."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, v0, mesh, dims):
+        lf = lg.float()
+        m = all_reduce(lf.amax(dim=-1), "max", mesh, dims)
+        s = torch.exp(lf - m[..., None]).sum(dim=-1)
+        idx = labels.long() - v0
+        own = (idx >= 0) & (idx < lf.shape[-1])
+        idx = idx.clamp(0, lf.shape[-1] - 1)
+        ll = torch.where(own, lf.gather(-1, idx[..., None])[..., 0], 0.0)
+        s, ll = all_reduce(torch.stack([s, ll]), "sum", mesh, dims).unbind(0)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(lg, lse, idx, own)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, idx, own = ctx.saved_tensors
+        p = torch.exp(lg.float() - lse[..., None])
+        p.scatter_add_(-1, idx[..., None], -own[..., None].to(p.dtype))
+        p.mul_(g[..., None])
+        return p.to(lg.dtype), None, None, None, None
 
 
 def _sinusoid(S: int, D: int, device, dtype=torch.bfloat16):

@@ -152,10 +152,129 @@ def local_region(fn, args, in_placements, out_placements, mesh):
             q if q.is_shard() else (Partial() if i in split else Replicate())
             for i, q in enumerate(pl))
         for pl in in_placements)
+    # an input that is a partial mean (or max) and takes a partial-sum
+    # gradient is reduced first, its gradient too: DTensor cannot turn a
+    # partial sum into another partial kind
+    args = tuple(
+        _reduced(x) if is_dtensor(x) and g is not None and any(
+            q.is_partial() and getattr(q, "reduce_op", "sum") != "sum"
+            and gq.is_partial() for q, gq in zip(x.placements, g)) else x
+        for x, g in zip(args, grads))
     return local_map(fn, out_placements=out_placements,
                      in_placements=tuple(in_placements),
                      in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def model_dim(mesh):
+    """The mesh dim named "model", or None."""
+    names = list(mesh.mesh_dim_names or ())
+    return names.index("model") if "model" in names else None
+
+
+# Collectives inside a region, on each rank's local tensors.  They are
+# ``_c10d_functional`` ops, so the launch layer's op counter sees them as
+# it sees DTensor's own redistributions.
+
+def _waited(t):
+    return t.wait() if hasattr(t, "wait") else t
+
+
+def all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """``t`` reduced by ``op`` ("sum", "max") over the mesh ``dims``, in
+    turn (no autograd: the callers' own backward needs none)."""
+    import torch.distributed._functional_collectives as funcol
+
+    for d in dims:
+        t = _waited(funcol.all_reduce(t, op, mesh.get_group(d)))
+    return t
+
+
+def all_gather(t: torch.Tensor, dim: int, mesh, dims) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` over the mesh ``dims``
+    (the last of them fastest, as DTensor splits a dim); under autograd its
+    backward is the matching reduce-scatter."""
+    return _Gather.apply(t, dim, mesh, tuple(dims))
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, mesh, dims) -> torch.Tensor:
+    """``t`` summed over the mesh ``dims`` and split along ``dim``, each
+    rank keeping its piece (the inverse layout of :func:`all_gather`);
+    under autograd its backward is that all-gather."""
+    return _Scatter.apply(t, dim, mesh, tuple(dims))
+
+
+def _gather(t, dim, mesh, dims):
+    import torch.distributed._functional_collectives as funcol
+
+    for d in reversed(dims):
+        t = _waited(funcol.all_gather_tensor(t.contiguous(), dim,
+                                             mesh.get_group(d)))
+    return t
+
+
+def _scatter(t, dim, mesh, dims):
+    import torch.distributed._functional_collectives as funcol
+
+    for d in dims:
+        t = _waited(funcol.reduce_scatter_tensor(t.contiguous(), "sum", dim,
+                                                 mesh.get_group(d)))
+    return t
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, dims):
+        ctx.args = (dim, mesh, dims)
+        return _gather(t, dim, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_scatter(g, *ctx.args),) + (None,) * 3
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, dims):
+        ctx.args = (dim, mesh, dims)
+        return _scatter(t, dim, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gather(g, *ctx.args),) + (None,) * 3
+
+
+def shard_offset(size: int, mesh, dims) -> int:
+    """The first index of this rank's piece of a dim of ``size`` split
+    over the mesh ``dims`` in mesh order, DTensor's way (``torch.chunk``:
+    pieces of ceil(len / n), the last ones shorter or empty)."""
+    off = 0
+    for d in dims:
+        n, r = mesh.size(d), mesh.get_local_rank(d)
+        c = -(-size // n)
+        start = min(r * c, size)
+        off, size = off + start, min(size, start + c) - start
+    return off
+
+
+def shard_index(mesh, dims) -> tuple:
+    """(this rank's piece, number of pieces) of a dim split over the mesh
+    ``dims`` in mesh order (DTensor's layout)."""
+    k, n = 0, 1
+    for d in dims:
+        k = k * mesh.size(d) + mesh.get_local_rank(d)
+        n *= mesh.size(d)
+    return k, n
+
+
+def _reduced(x):
+    """``x`` with its partial placements reduced (replicated), and its
+    gradient redistributed to those replicated placements."""
+    from torch.distributed.tensor import Replicate
+
+    return _GradPlaced.apply(x.redistribute(
+        x.device_mesh, [Replicate() if q.is_partial() else q
+                        for q in x.placements]))
 
 
 def _head_placements(mesh, B: int, n_heads: int, n_kv: int):
@@ -523,6 +642,40 @@ def _sharded_decode_attention(q, k_cache, v_cache, cache_len):
         n_pl = (Replicate(),) * mesh.ndim
     return local_region(local, (q, k_cache, v_cache, cache_len),
                         (q_pl, kv_pl, kv_pl, n_pl), (q_pl,), mesh)
+
+
+def length_dims(kv, dim: int = 1) -> list:
+    """The mesh dims of size > 1 that split ``dim`` (the length) of the
+    DTensor ``kv`` (empty for a plain tensor)."""
+    if not is_dtensor(kv):
+        return []
+    mesh = kv.device_mesh
+    return [i for i, q in enumerate(kv.placements)
+            if q.is_shard(dim) and mesh.size(i) > 1]
+
+
+def split_kv_attend(q, k, v, valid, mesh, dims):
+    """One query token against one rank's slice of a length-sharded kv
+    (split-KV, FlashDecoding's merge): q (B, 1, H, Dh), k/v (B, Ll, G, Dh)
+    local, ``valid`` (Ll,) which of the slice's entries count.  Each rank
+    attends over its slice and the (output, max, sum) partials merge by a
+    log-sum-exp over the mesh ``dims``; returns (B, 1, H, Dh) in q's
+    dtype, on every rank."""
+    B, Ll, G, Dh = k.shape
+    H = q.shape[2]
+    kq, vq = k.movedim(2, 1), v.movedim(2, 1)                  # (B,G,Ll,Dh)
+    qh = q.movedim(2, 1).reshape(B, G, H // G, 1, Dh)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qh, kq).float() / math.sqrt(Dh)
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bgrqk,bgkd->bgrqd", p.to(vq.dtype), vq).float()
+    mg = all_reduce(m, "max", mesh, dims)
+    a = torch.exp(m - mg)
+    lo = torch.cat([o * a, p.sum(dim=-1, keepdim=True) * a], dim=-1)
+    lo = all_reduce(lo, "sum", mesh, dims)
+    o = (lo[..., :Dh] / lo[..., Dh:]).to(q.dtype)
+    return o.reshape(B, H, 1, Dh).movedim(1, 2)
 
 
 def swiglu_init(gen, d: int, f: int, device=None):

@@ -14,8 +14,12 @@ result, not the contraction order, is the spec).  ``softplus`` is
 ``logaddexp(x, 0)``, jax.nn.softplus exactly (``F.softplus`` would return
 ``x`` above its threshold of 20).
 
-On DTensors the scan runs as a head-parallel region (each rank scans its
-batch rows and heads), as attention does.
+On DTensors with a "model" dim the in-projection and the conv run per
+part (z, the SSM input, B and C, dt), each split over "model" its own
+way, and the scan runs as a region over each rank's batch rows and
+heads, as attention does, or, where the heads do not divide "model",
+over its slice of the sequence, the slices' states handed on by an
+all-gather (the chunked scan's own hand-off, one level up).
 """
 from __future__ import annotations
 
@@ -27,8 +31,9 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from .layers import (
-    _head_placements, constrain_acts, dense, dense_init, is_dtensor,
-    local_region, randn, rmsnorm, rmsnorm_init,
+    _head_placements, all_gather, constrain_acts, dense, dense_init,
+    is_dtensor, local_region, model_dim, randn, rmsnorm, rmsnorm_init,
+    split_heads,
 )
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_init_state", "mamba_decode_step"]
@@ -111,6 +116,74 @@ def _sharded_conv(p, xBC, w: int):
                         (tuple(x_pl),), mesh)
 
 
+def _model_split(x) -> bool:
+    """Is ``x`` a DTensor on a mesh whose "model" dim has size > 1?"""
+    if not is_dtensor(x):
+        return False
+    t = model_dim(x.device_mesh)
+    return t is not None and x.device_mesh.size(t) > 1
+
+
+def _column_blocks(w, widths):
+    """The column blocks (last dim) of ``widths`` of the DTensor ``w``,
+    each split over "model" where its width divides it: ``w``'s columns
+    are gathered over "model" (a weight, not an activation), cut, and
+    each block sharded again, so that an activation computed from a
+    block is split the block's way, not ``w``'s."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = w.device_mesh
+    t = model_dim(mesh)
+    d = w.ndim - 1
+    whole = w.redistribute(mesh, [Replicate() if q.is_shard(d) else q
+                                  for q in w.placements])
+    out, c0 = [], 0
+    for n in widths:
+        b = whole[..., c0:c0 + n]
+        c0 += n
+        if n % mesh.size(t) == 0:
+            b = b.redistribute(mesh, [Shard(d) if i == t else q
+                                      for i, q in enumerate(b.placements)])
+        out.append(b)
+    return out
+
+
+def _sharded_mixer_in(p, cfg: ArchConfig, x):
+    """The in-projection and causal conv of :func:`mamba_apply` on a
+    DTensor ``x`` with a "model" dim: one projection per part (z, the
+    SSM input, B and C together, dt), each split over "model" its own
+    way, so that no slice of a channel-sharded tensor is taken (DTensor
+    gathers the whole tensor for each).  B and C, which every head
+    reads, are gathered after their conv.  Returns (z, xs (B, S, H, P),
+    B, C, dt, the raw conv inputs)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    wz, wx, wbc, wdt = _column_blocks(p["in_proj"], (di, di, 2 * N, H))
+    z, xs_raw, bc_raw, dt = (dense(w, x) for w in (wz, wx, wbc, wdt))
+    cw = _column_blocks(p["conv_w"], (di, 2 * N))
+    cb = _column_blocks(p["conv_b"], (di, 2 * N))
+    xs = _causal_conv({"conv_w": cw[0], "conv_b": cb[0]}, xs_raw,
+                      cfg.conv_width)
+    bc = _causal_conv({"conv_w": cw[1], "conv_b": cb[1]}, bc_raw,
+                      cfg.conv_width)
+    mesh = bc.device_mesh
+    bc = bc.redistribute(mesh, [Replicate() if q.is_shard(2) else q
+                                for q in bc.placements])
+    t = model_dim(mesh)
+    B, S = x.shape[:2]
+    if H % mesh.size(t) and S % mesh.size(t) == 0:
+        # heads that do not divide "model": the scan splits the sequence
+        # (:func:`_seq_ssd`), so the SSM input leaves its channel split
+        # for a sequence split (an all-to-all), not for a gather
+        xs = xs.redistribute(mesh, [Shard(1) if i == t else q
+                                    for i, q in enumerate(xs.placements)])
+        xs = xs.reshape(B, S, H, cfg.ssm_head_dim)
+    else:
+        xs = split_heads(xs, H)
+    return z, xs, bc[..., :N], bc[..., N:], dt, (xs_raw, bc_raw)
+
+
 def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     """SSD chunked scan.
 
@@ -174,6 +247,8 @@ def _sharded_ssd(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     mesh = x.device_mesh
     x_pl, _, t, _ = _head_placements(mesh, x.shape[0], x.shape[2],
                                      x.shape[2])
+    if _seq_split(x, mesh, t):
+        return _seq_ssd(x, dt, A, Bm, Cm, chunk, init_state, mesh, t, x_pl)
 
     def moved(dim):   # x's placements with its head shard on ``dim``
         return tuple(Shard(dim) if i == t and q.is_shard(2) else q
@@ -191,6 +266,63 @@ def _sharded_ssd(x, dt, A, Bm, Cm, chunk: int, init_state=None):
         (x_pl, h_pl), mesh)
 
 
+def _model_like(y, z):
+    """``y`` redistributed over "model" as ``z`` is split there (other
+    mesh dims as they are), where ``z`` is split there."""
+    mesh = y.device_mesh
+    t = model_dim(mesh)
+    q = None if t is None else z.placements[t]
+    if q is None or not q.is_shard() or y.placements[t] == q:
+        return y
+    return y.redistribute(mesh, [q if i == t else p_
+                                 for i, p_ in enumerate(y.placements)])
+
+
+def _seq_split(x, mesh, t) -> bool:
+    """Does the (B, S, H, P) DTensor ``x`` scan sequence-parallel over the
+    mesh dim ``t``: its heads do not divide it, its length does?"""
+    n = 1 if t is None else mesh.size(t)
+    return n > 1 and x.shape[2] % n != 0 and x.shape[1] % n == 0
+
+
+def _seq_ssd(x, dt, A, Bm, Cm, chunk: int, init_state, mesh, t, x_pl):
+    """:func:`_ssd_chunked` split along the sequence over the mesh dim
+    ``t`` (heads that do not divide it): each rank scans its slice of the
+    positions from a zero state, the slices' final states and total
+    decays are all-gathered, and each rank adds the decayed contribution
+    of the state that enters its slice (the chunked scan's own hand-off,
+    one level up).  Returns y split along the sequence and the final
+    state on every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    s_pl = tuple(Shard(1) if i == t else q for i, q in enumerate(x_pl))
+    rep = (Replicate(),) * mesh.ndim
+
+    def local(xl, dtl, al, bl, cl, h0):
+        j, n = mesh.get_local_rank(t), mesh.size(t)
+        y, h = _ssd_chunked(xl, dtl, al, bl, cl, chunk)
+        cs = torch.cumsum((dtl * al).float(), dim=1)            # (B,Sl,H)
+        hs = all_gather(h[None], 0, mesh, [t])                  # (n,B,H,P,N)
+        ds = all_gather(torch.exp(cs[None, :, -1]), 0, mesh, [t])
+        h_in = torch.zeros_like(h) if h0 is None else h0.float()
+        entering, h_out = h_in, h_in
+        for i in range(n):
+            # every slice's terms enter every rank's graph (with weight 0
+            # from slice j on), so every rank runs the gathers' backward
+            w = float(i < j)
+            entering = (entering * (ds[i] * w + (1 - w))[..., None, None]
+                        + hs[i] * w)
+            h_out = h_out * ds[i][..., None, None] + hs[i]
+        off = torch.einsum("bsn,bhpn->bshp", cl.float(), entering)
+        return (y + (off * torch.exp(cs)[..., None]).to(y.dtype)), h_out
+
+    h_pl = tuple(q if q.is_shard() else Replicate() for q in x_pl)
+    args = (x, dt, A, Bm, Cm, init_state)
+    in_pl = (s_pl, s_pl, rep, s_pl, s_pl,
+             h_pl if is_dtensor(init_state) else None)
+    return local_region(local, args, in_pl, (s_pl, h_pl), mesh)
+
+
 def mamba_apply(
     p,
     cfg: ArchConfig,
@@ -203,22 +335,30 @@ def mamba_apply(
     B, S, D = u.shape
     res = u
     x = rmsnorm(p["ln"], u)
-    z, xBC_raw, dt = _split_proj(cfg, dense(p["in_proj"], x))
-    xBC = _causal_conv(p, xBC_raw, cfg.conv_width)
-    xs = xBC[..., :di].reshape(B, S, H, P)
-    Bm = xBC[..., di: di + N]
-    Cm = xBC[..., di + N:]
+    if _model_split(x):
+        z, xs, Bm, Cm, dt, raw = _sharded_mixer_in(p, cfg, x)
+    else:
+        z, xBC_raw, dt = _split_proj(cfg, dense(p["in_proj"], x))
+        xBC = _causal_conv(p, xBC_raw, cfg.conv_width)
+        xs = xBC[..., :di].reshape(B, S, H, P)
+        Bm = xBC[..., di: di + N]
+        Cm = xBC[..., di + N:]
+        raw = (xBC_raw,)
     dt = _softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, hT = _ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
     y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
+    if is_dtensor(y):
+        y = _model_like(y, z)          # a sequence split back to channels
     y = rmsnorm(p["gn"], y * F.silu(z))
     out = constrain_acts(res + dense(p["out_proj"], y))
     if return_state:
         # conv history for decode continuity: last (w-1) raw conv inputs
         w = cfg.conv_width
-        tail = xBC_raw[:, -(w - 1):].to(torch.bfloat16)
+        tail = [r[:, -(w - 1):] for r in raw]
+        tail = (tail[0] if len(tail) == 1
+                else torch.cat(tail, dim=-1)).to(torch.bfloat16)
         pad = (w - 1) - tail.shape[1]
         if pad > 0:
             tail = F.pad(tail, (0, 0, pad, 0))

@@ -16,8 +16,10 @@ dispatches tokens in ``n`` independent blocks, each with its own capacity
 runs the layer as an explicit-collective region over a mesh.  On DTensor
 activations the layer always runs as such a region
 (:func:`_moe_region`, a ``local_map``): each rank routes the tokens it
-holds, runs the expert GEMMs on its slice of the experts (EP) or of
-``d_ff`` (TP), and the partial outputs are summed over "model".
+holds (by default under the whole batch's capacity, its queue offsets
+taken from the other data shards' counts), runs the expert GEMMs on its
+slice of the experts (EP) or of ``d_ff`` (TP), and the partial outputs
+are summed over "model".
 """
 from __future__ import annotations
 
@@ -27,7 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .layers import dense_init, is_dtensor, local_region, randn
+from .layers import (
+    all_gather, dense_init, is_dtensor, local_region, randn, reduce_scatter,
+    shard_index,
+)
 
 __all__ = ["moe_init", "moe_apply", "moe_capacity", "set_moe_block_dispatch",
            "set_moe_shard_map"]
@@ -76,12 +81,21 @@ def moe_capacity(cfg: ArchConfig, T: int) -> int:
     return min(cap, T)
 
 
-def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None):
+def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None,
+                    shard=None):
     """Token-choice top-k dispatch + expert GEMMs for one token block.
 
     xt: (Tb, D) -> (y: (Tb, D), aux: scalar).  ``experts=(e0, n)``: the
     expert weights in ``p`` are experts ``e0 .. e0+n-1`` only (EP), and
-    ``y`` sums only their outputs.
+    ``y`` sums only their outputs.  ``shard=(mesh, dims)``: ``xt`` is
+    this rank's piece of a block split over the mesh ``dims`` (token
+    order: the pieces in DTensor's order), routed as that whole block
+    is, under the whole block's capacity ``cap``: each expert's queue
+    positions are offset by the earlier pieces' counts (an all-gather of
+    E counts), the expert buffers are reduce-scattered over ``dims`` along
+    their capacity slots, so each rank runs the expert GEMMs on its share
+    of the slots, and gathered back; the aux loss is this piece's share
+    of the whole block's.
     """
     E, K = cfg.n_experts, cfg.top_k
     Tb, D = xt.shape
@@ -94,40 +108,58 @@ def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None):
     gate_w, gate_i = gate_w[:, :K], gate_i[:, :K]            # (Tb, K)
     gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
 
-    # load-balancing aux loss (Switch/GShard)
-    me = probs.mean(dim=0)                                   # (E,)
-    ce = F.one_hot(gate_i, E).float().sum(dim=1).mean(dim=0)
-    aux = E * (me * ce).sum()
-
     # position of each assignment within its expert queue
     eflat = gate_i.reshape(-1)                               # (Tb*K,)
     onehot = F.one_hot(eflat, E).to(torch.int32)             # (Tb*K, E)
     pos = torch.cumsum(onehot, dim=0) - 1
     pos = pos.gather(1, eflat[:, None])[:, 0]
+
+    # load-balancing aux loss (Switch/GShard)
+    if shard is None:
+        me = probs.mean(dim=0)                               # (E,)
+        ce = F.one_hot(gate_i, E).float().sum(dim=1).mean(dim=0)
+        aux = E * (me * ce).sum()
+        slots = cap
+    else:
+        mesh, dims = shard
+        k, n = shard_index(mesh, dims)
+        counts = all_gather(onehot.sum(dim=0)[None], 0, mesh, dims)
+        pos = pos + counts[:k].sum(dim=0)[eflat]
+        T = Tb * n
+        ce = counts.sum(dim=0).float() / T
+        aux = E * (probs.sum(dim=0) / T * ce).sum()
+        slots = -(-cap // n) * n       # a whole share of slots per rank
     keep = pos < cap
     slot = torch.where(keep, pos, torch.zeros_like(pos)).long()
 
-    # dispatch: (E, C, D) expert buffers, filled through a flat (E·C, D) view
     xt_rep = torch.repeat_interleave(xt, K, dim=0)           # (Tb*K, D)
-    contrib = xt_rep * keep[:, None].to(xt.dtype)
-    flat = eflat * cap + slot
-    buf = torch.zeros((E * cap, D), dtype=xt.dtype, device=xt.device)
-    buf.index_add_(0, flat, contrib)
-    buf = buf.view(E, cap, D)
+    if shard is not None:
+        buf, flat, wmask = _shard_buffers(xt_rep, eflat, slot, keep, slots,
+                                          E, experts, mesh, dims)
+    else:
+        # dispatch: (E, C, D) expert buffers, filled through a flat (E·C,
+        # D) view
+        contrib = xt_rep * keep[:, None].to(xt.dtype)
+        flat = eflat * cap + slot
+        buf = torch.zeros((E * cap, D), dtype=xt.dtype, device=xt.device)
+        buf.index_add_(0, flat, contrib)
+        buf = buf.view(E, cap, D)
 
-    wmask = keep
-    if experts is not None:
-        e0, n = experts
-        buf = buf[e0:e0 + n]
-        local = (eflat >= e0) & (eflat < e0 + n)
-        wmask = keep & local
-        flat = torch.where(local, flat - e0 * cap, torch.zeros_like(flat))
+        wmask = keep
+        if experts is not None:
+            e0, n = experts
+            buf = buf[e0:e0 + n]
+            local = (eflat >= e0) & (eflat < e0 + n)
+            wmask = keep & local
+            flat = torch.where(local, flat - e0 * cap, torch.zeros_like(flat))
 
     # grouped expert GEMMs (weights cast to the activation dtype at use)
     g = torch.bmm(buf, p["w_gate"].to(xt.dtype))
     u = torch.bmm(buf, p["w_up"].to(xt.dtype))
     h = F.silu(g) * u
     out = torch.bmm(h, p["w_down"].to(xt.dtype))
+    if shard is not None:
+        out = all_gather(out, 1, mesh, dims)
 
     # combine
     y = out.reshape(-1, D)[flat] * (
@@ -136,24 +168,50 @@ def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None):
     return y, aux
 
 
+def _shard_buffers(xt_rep, eflat, slot, keep, slots: int, n_experts: int,
+                   experts, mesh, dims):
+    """The expert buffers of a block split over the mesh ``dims``: this
+    piece's kept assignments (of its experts only, under EP) in a local
+    (n, slots, D) buffer, zero elsewhere, reduce-scattered over ``dims``
+    along the slots.  Returns (buffer share, flat row of each assignment
+    in the gathered buffer, its combine mask)."""
+    n, wmask = n_experts, keep
+    if experts is not None:
+        e0, n = experts
+        local = (eflat >= e0) & (eflat < e0 + n)
+        wmask = keep & local
+        eflat = torch.where(local, eflat - e0, torch.zeros_like(eflat))
+    flat = eflat * slots + slot
+    D = xt_rep.shape[-1]
+    contrib = xt_rep * wmask[:, None].to(xt_rep.dtype)
+    buf = torch.zeros((n * slots, D), dtype=xt_rep.dtype,
+                      device=xt_rep.device)
+    buf = buf.index_add(0, flat, contrib).view(n, slots, D)
+    return reduce_scatter(buf, 1, mesh, dims), flat, wmask
+
+
 def _mesh_dims(mesh, axes) -> list:
     names = list(mesh.mesh_dim_names)
     return [names.index(a) for a in ((axes,) if isinstance(axes, str) else axes)]
 
 
 def _moe_region(p, cfg: ArchConfig, x, mesh, dp, tp: str, cap: int,
-                wdtype: torch.dtype, allow_ep: bool = True):
+                wdtype: torch.dtype, allow_ep: bool = True,
+                whole: bool = False):
     """The MoE layer on DTensor activations as one ``local_map`` region
-    over ``mesh``.  Tokens: sharded over the ``dp`` axes (each shard
-    routes its own with capacity ``cap``), or, with ``dp`` None,
-    replicated (every rank routes all of them: the global capacity of
-    the plain layer).  Experts: split over ``tp`` by expert (EP, when
-    they divide it as the sharding rules place them) or by ``d_ff``
-    (TP; always with ``allow_ep`` False), else replicated.  The partial
-    outputs are summed over ``tp`` (DTensor's all-reduce of a
-    ``Partial``); the aux loss is averaged over the axes the work is
-    split on (JAX's ``pmean`` over every axis of its shard_map: the same
-    value).  The weights enter in ``wdtype``."""
+    over ``mesh``.  Tokens: sharded over the ``dp`` axes, each shard
+    routing its own with capacity ``cap`` (a dispatch block per shard),
+    or with ``whole`` as pieces of one block under its capacity ``cap``
+    (the plain layer's routing, :func:`_dispatch_block`'s ``shard``),
+    or, with ``dp`` None, replicated (every rank routes all of them).
+    Experts: split over ``tp`` by expert (EP, when they divide it as the
+    sharding rules place them) or by ``d_ff`` (TP; always with
+    ``allow_ep`` False), else replicated.  The partial outputs are summed
+    over ``tp`` (DTensor's all-reduce of a ``Partial``); the aux loss is
+    averaged over the axes the work is split on (JAX's ``pmean`` over
+    every axis of its shard_map: the same value), or with ``whole``
+    summed over the pieces and averaged over ``tp``.  The weights enter
+    in ``wdtype``."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     B, S, D = x.shape
@@ -172,9 +230,9 @@ def _moe_region(p, cfg: ArchConfig, x, mesh, dp, tp: str, cap: int,
         return tuple(pl)
 
     x_pl, y_pl = list(rep), list(rep)
-    if dp is not None:
-        for i in _mesh_dims(mesh, dp):
-            x_pl[i] = y_pl[i] = Shard(0)
+    dp_dims = [] if dp is None else _mesh_dims(mesh, dp)
+    for i in dp_dims:
+        x_pl[i] = y_pl[i] = Shard(0)
     if split:
         y_pl[t] = Partial()
     # the aux loss: averaged over the mesh dims the work is split on, as a
@@ -183,6 +241,7 @@ def _moe_region(p, cfg: ArchConfig, x, mesh, dp, tp: str, cap: int,
     split_dims = ({i for i, q in enumerate(x_pl) if q.is_shard()}
                   | ({t} if split else set()))
     n_split = math.prod(mesh.size(i) for i in split_dims)
+    n_aux = (n_tp if split else 1) if whole else n_split
     aux_pl = tuple(Partial() if i in split_dims else Replicate()
                    for i in range(nd))
     w_in = on_tp(0 if ep else 2)     # (E, D, F)
@@ -197,8 +256,8 @@ def _moe_region(p, cfg: ArchConfig, x, mesh, dp, tp: str, cap: int,
             experts = (e0, n_local)
         pl = {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd}
         y, aux = _dispatch_block(xl.reshape(Bl * Sl, D), pl, cfg, cap,
-                                 experts)
-        return y.reshape(Bl, Sl, D), aux / n_split
+                                 experts, (mesh, dp_dims) if whole else None)
+        return y.reshape(Bl, Sl, D), aux / n_aux
 
     ws = [p["w_gate"], p["w_up"], p["w_down"]]
     for i, key in ((0, "w_in"), (1, "w_in"), (2, "w_out")):
@@ -242,16 +301,19 @@ def moe_apply(p, cfg: ArchConfig, x: torch.Tensor):
     cap = moe_capacity(cfg, T // nb)
 
     if is_dtensor(x):
-        # block-local dispatch: one block per data shard of the batch
         mesh = x.device_mesh
-        dp = None
+        dp = tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+        n_dp = math.prod(mesh.size(i) for i in _mesh_dims(mesh, dp))
         if nb > 1:
-            dp = tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
-            n_dp = math.prod(mesh.size(i) for i in _mesh_dims(mesh, dp))
+            # block-local dispatch: one block per data shard of the batch
             if nb != n_dp:
                 raise ValueError(f"{nb} dispatch blocks on DTensors need one "
                                  f"per data shard ({n_dp})")
-        return _moe_region(p, cfg, x, mesh, dp, "model", cap, x.dtype)
+            return _moe_region(p, cfg, x, mesh, dp, "model", cap, x.dtype)
+        # one block: each data shard routes its rows under its capacity
+        whole = n_dp > 1 and B % n_dp == 0
+        return _moe_region(p, cfg, x, mesh, dp if whole else None, "model",
+                           cap, x.dtype, whole=whole)
 
     if nb == 1:
         y, aux = _dispatch_block(x.reshape(T, D), p, cfg, cap)

@@ -27,10 +27,11 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from .layers import (
-    _head_placements, chunked_attention, constrain_acts, decode_attention,
-    dense, dense_init, embed_init, gelu_mlp, gelu_mlp_init, is_dtensor,
-    kv_groups, layernorm, layernorm_init, local_region, remat_call, rmsnorm,
-    rmsnorm_init, rope, swiglu, swiglu_init,
+    _GradPlaced, _head_placements, chunked_attention, constrain_acts,
+    decode_attention, dense, dense_init, embed_init, gelu_mlp, gelu_mlp_init,
+    is_dtensor, kv_groups, layernorm, layernorm_init, length_dims,
+    local_region, remat_call, rmsnorm, rmsnorm_init, rope, shard_index,
+    split_kv_attend, swiglu, swiglu_init,
 )
 
 __all__ = [
@@ -172,7 +173,11 @@ def attn_apply(
     core = functools.partial(_attn_core, hd=hd, theta=cfg.rope_theta,
                              causal=causal, use_rope=use_rope, window=window,
                              self_kv=kv_x is None)
-    if is_dtensor(q):
+    if is_dtensor(q) and cache is not None and S == 1 and length_dims(
+            cache["k"]):
+        o, new_cache = _split_kv_decode(core, cfg, q, k, v, norms, positions,
+                                        cache, window)
+    elif is_dtensor(q):
         o, new_cache = _sharded_attn_core(core, cfg, q, k, v, norms,
                                           positions, cache)
     else:
@@ -181,13 +186,11 @@ def attn_apply(
     return y, new_cache
 
 
-def _attn_core(q, k, v, norms, positions, cache, *, hd: int, theta: float,
-               causal: bool, use_rope: bool, window, self_kv: bool,
-               groups=None):
-    """Attention after the projections: q (B, S, H·hd), k/v (B, Skv,
-    G·hd) -> (o (B, S, H, hd), new cache).  ``groups=(g0, g1)``: attend
-    with kv groups g0..g1-1 only (this rank's query heads'), after the
-    cache took every group."""
+def _qkv_heads(q, k, v, norms, positions, *, hd: int, theta: float,
+               use_rope: bool, self_kv: bool, q_offset: int = 0):
+    """q (B, S, H·hd), k/v (B, Skv, G·hd) -> (B, S, H, hd), (B, Skv, G,
+    hd) x 2 and the positions, after the qk norms and the rotary
+    embedding; q's rows are those at ``positions[q_offset:]``."""
     B, S = q.shape[:2]
     Skv = k.shape[1]
     q = q.reshape(B, S, -1, hd)
@@ -197,11 +200,31 @@ def _attn_core(q, k, v, norms, positions, cache, *, hd: int, theta: float,
         q = rmsnorm(norms[0], q)
         k = rmsnorm(norms[1], k)
     if positions is None:
-        positions = torch.arange(S, device=q.device)
+        positions = torch.arange(q_offset + S, device=q.device)
     if use_rope:
-        q = rope(q, positions, theta)
+        q = rope(q, positions[q_offset:q_offset + S], theta)
         if self_kv:
             k = rope(k, positions[:Skv], theta)
+    return q, k, v, positions
+
+
+def _ring_slot(pos, L: int, window):
+    """The cache slot of position ``pos`` (a ring where ``window``)."""
+    return pos % L if window is not None else torch.clamp(pos, max=L - 1)
+
+
+def _attn_core(q, k, v, norms, positions, cache, *, hd: int, theta: float,
+               causal: bool, use_rope: bool, window, self_kv: bool,
+               groups=None, q_offset: int = 0):
+    """Attention after the projections: q (B, S, H·hd), k/v (B, Skv,
+    G·hd) -> (o (B, S, H, hd), new cache).  ``groups=(g0, g1)``: attend
+    with kv groups g0..g1-1 only (this rank's query heads'), after the
+    cache took every group.  ``q_offset``: q holds the rows from there
+    on (this rank's of a sequence split), k/v and ``positions`` all."""
+    S = q.shape[1]
+    q, k, v, positions = _qkv_heads(q, k, v, norms, positions, hd=hd,
+                                    theta=theta, use_rope=use_rope,
+                                    self_kv=self_kv, q_offset=q_offset)
 
     def attend_groups(k, v):
         return (k, v) if groups is None else (k[:, :, groups[0]:groups[1]],
@@ -212,8 +235,7 @@ def _attn_core(q, k, v, norms, positions, cache, *, hd: int, theta: float,
         # decode: ring-buffer write at pos % cache_size
         L = cache["k"].shape[1]
         pos = cache["len"]
-        slot = pos % L if window is not None else torch.clamp(pos, max=L - 1)
-        idx = slot.reshape(1).long()
+        idx = _ring_slot(pos, L, window).reshape(1).long()
         ck = cache["k"].index_copy(1, idx, k.to(cache["k"].dtype))
         cv = cache["v"].index_copy(1, idx, v.to(cache["v"].dtype))
         o = decode_attention(q, *attend_groups(ck, cv),
@@ -236,9 +258,10 @@ def _attn_core(q, k, v, norms, positions, cache, *, hd: int, theta: float,
                 cv = cache["v"].clone()
                 ck[:, :nt] = kt
                 cv[:, :nt] = vt
-            new_cache = {"k": ck, "v": cv, "len": cache["len"] + S}
+            new_cache = {"k": ck, "v": cv,
+                         "len": cache["len"] + positions.shape[0]}
         o = chunked_attention(q, *attend_groups(k, v), causal=causal,
-                              window=window)
+                              window=window, q_offset=q_offset)
     return o, new_cache
 
 
@@ -248,8 +271,10 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
     region: each rank takes its batch rows and query heads (with every kv
     group where the kv heads do not split over "model", so the cache
     stays whole on each rank), the cache with its full length; the new
-    cache goes back to the cache's own placements."""
-    from torch.distributed.tensor import Replicate
+    cache goes back to the cache's own placements.  Where the query
+    heads do not split over "model", its ranks take query rows instead
+    (sequence-parallel attention, the reference's q-chunk sharding)."""
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
     H, G = cfg.n_heads, cfg.n_kv_heads
@@ -257,14 +282,23 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
     rep = (Replicate(),) * mesh.ndim
     leaves = [] if cache is None else [cache["k"], cache["v"], cache["len"]]
     back = [c.placements for c in leaves]
+    S, n_t = q.shape[1], 1 if t is None else mesh.size(t)
+    seq = n_t > 1 and H % n_t != 0 and S > 1 and S % n_t == 0
+    if seq:
+        # the heads do not split over "model": its ranks split the query
+        # rows instead, each with the whole kv (gathered once a layer)
+        q_pl = tuple(Shard(1) if i == t else p_ for i, p_ in enumerate(kv_pl))
 
     def local(ql, kl, vl, nq, nk, pos, *cl):
         groups = None
-        if kv_rep:
+        if kv_rep and not seq:
             groups = kv_groups(mesh, t, ql.shape[-1] // cfg.d_head, H // G)
         lc = None if not cl else {"k": cl[0], "v": cl[1], "len": cl[2]}
+        off = mesh.get_local_rank(t) * ql.shape[1] if seq else 0
         o, nc = core(ql, kl, vl, None if nq is None else (nq, nk), pos, lc,
-                     groups=groups)
+                     groups=groups, q_offset=off)
+        if seq:   # (B, S/n, H·hd), to leave split along H·hd (all-to-all)
+            o = o.reshape(*o.shape[:2], -1)
         return (o,) if nc is None else (o, nc["k"], nc["v"], nc["len"])
 
     def pl_of(x, pl):
@@ -275,11 +309,68 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
              pl_of(positions, rep), *((kv_pl, kv_pl, rep) if leaves else ()))
     out = local_region(local, args, in_pl,
                        (q_pl,) + ((kv_pl, kv_pl, rep) if leaves else ()), mesh)
+    o = out[0]
+    if seq and o.shape[-1] % n_t == 0:
+        o = o.redistribute(mesh, [Shard(2) if i == t else p_
+                                  for i, p_ in enumerate(o.placements)])
     if not leaves:
-        return out[0], None
+        return o, None
     nc = {key: x.redistribute(mesh, pl)
           for key, x, pl in zip(("k", "v", "len"), out[1:], back)}
-    return out[0], nc
+    return o, nc
+
+
+def _split_kv_decode(core, cfg: ArchConfig, q, k, v, norms, positions,
+                     cache, window):
+    """A decode step against a cache whose length is sharded (the rules'
+    split-KV fallback where the kv heads do not divide "model") as one
+    region: each rank takes its batch rows with every head, writes the
+    new token's k/v only where its slice of the length holds the slot,
+    and attends over its slice; the partials merge over the length's
+    mesh dims (:func:`split_kv_attend`).  The cache keeps its
+    placements."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = q.device_mesh
+    kw = core.keywords
+    ldims = length_dims(cache["k"])
+    c_pl = cache["k"].placements
+    b_pl = tuple(q_ if q_.is_shard(0) else Replicate() for q_ in c_pl)
+    rep = (Replicate(),) * mesh.ndim
+
+    def local(ql, kl, vl, nq, nk, pos, ck, cv, n):
+        ql, kl, vl, _ = _qkv_heads(
+            ql, kl, vl, None if nq is None else (nq, nk), pos, hd=kw["hd"],
+            theta=kw["theta"], use_rope=kw["use_rope"],
+            self_kv=kw["self_kv"])
+        Ll = ck.shape[1]
+        j, nl = shard_index(mesh, ldims)
+        local_pos = torch.arange(Ll, device=ck.device) + j * Ll
+        idx = (_ring_slot(n, Ll * nl, window) - j * Ll).reshape(1).long()
+        mine = (idx >= 0) & (idx < Ll)
+        idx = idx.clamp(0, Ll - 1)
+
+        def write(c, x):
+            x = torch.where(mine[:, None, None], x.to(c.dtype),
+                            c.index_select(1, idx))
+            return c.index_copy(1, idx, x)
+
+        ck, cv = write(ck, kl), write(cv, vl)
+        valid = local_pos < torch.clamp(n + 1, max=Ll * nl)
+        o = split_kv_attend(ql, ck, cv, valid, mesh, ldims)
+        return o, ck, cv, n + 1
+
+    def pl_of(x, pl):
+        return pl if is_dtensor(x) else None
+
+    args = (q, k, v, *(norms or (None, None)), positions, cache["k"],
+            cache["v"], cache["len"])
+    in_pl = (b_pl, b_pl, b_pl,
+             *(pl_of(x, rep) for x in (norms or (None, None))),
+             pl_of(positions, rep), c_pl, c_pl, pl_of(cache["len"], rep))
+    o, ck, cv, n = local_region(local, args, in_pl, (b_pl, c_pl, c_pl, rep),
+                                mesh)
+    return o, {"k": ck, "v": cv, "len": n}
 
 
 def block_init(gen, cfg: ArchConfig, device=None):
@@ -325,7 +416,7 @@ def dense_params_init(gen, cfg: ArchConfig, device=None):
 def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
     """``embed[tokens]``; on a DTensor table, a vocab-parallel region."""
     if is_dtensor(embed):
-        return _sharded_embed(embed, tokens)
+        return _sharded_embed(_table(embed), tokens)
     return embed[tokens]
 
 
@@ -377,8 +468,17 @@ def _sharded_embed(embed, tokens):
 
 def head_logits(p, cfg: ArchConfig, x):
     if cfg.tie_embeddings:
-        return dense(p["embed"].T, x)
+        return dense(_table(p["embed"]).T, x)
     return dense(p["head"], x)
+
+
+def _table(embed):
+    """A DTensor embedding table whose gradient comes back in the table's
+    own placements.  A tied table's two gradients (the lookup's, partial
+    over the data axes, and the head's) then add in one placement:
+    torch 2.11's DTensor would turn the head's shard into a partial sum,
+    which it cannot, where the vocab does not divide "model"."""
+    return _GradPlaced.apply(embed) if is_dtensor(embed) else embed
 
 
 def dense_forward(p, cfg: ArchConfig, tokens: torch.Tensor,

@@ -50,10 +50,13 @@ def set_fp32(on: bool) -> None:
         api._embed_tokens, transformer.embed_tokens = set_fp32.orig
 
 
-def smoke_case(arch: str, seed: int = 0):
+def smoke_case(arch: str, seed: int = 0, overrides=None):
     """(model, CPU params from a seeded generator, batch) of a smoke
-    config; the batch from a numpy seed."""
-    cfg = get_smoke_config(arch)
+    config (its fields replaced by ``overrides``, a dict); the batch
+    from a numpy seed."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **(overrides or {}))
     model = build_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(seed),
                                device="cpu")
@@ -86,10 +89,14 @@ def _stubbed(batch, fp32: bool):
             for k, v in batch.items()}
 
 
-def loss_and_grads(rank: int, world: int, archs, mesh_shape, fp32=True):
+def loss_and_grads(rank: int, world: int, archs, mesh_shape, fp32=True,
+                   overrides=None):
     """Per arch: the plain loss and grads, and the loss and grads on
     DTensor params over a ``mesh_shape`` mesh (gathered), in fp32 when
-    ``fp32`` (the embedding's cast swapped out, the stubs kept fp32)."""
+    ``fp32`` (the embedding's cast swapped out, the stubs kept fp32);
+    ``overrides`` replaces smoke-config fields of every arch.  An entry
+    of ``archs`` may be ``(label, arch, overrides)``: that arch with its
+    own overrides, reported under ``label``."""
     from repro_torch.optim import AdamW
     from repro_torch.train import TrainConfig, Trainer
 
@@ -97,14 +104,16 @@ def loss_and_grads(rank: int, world: int, archs, mesh_shape, fp32=True):
     out = {}
     set_fp32(fp32)
     try:
-        for arch in archs:
-            model, params, batch = smoke_case(arch)
+        for entry in archs:
+            label, arch, ov = ((entry, entry, overrides)
+                               if isinstance(entry, str) else entry)
+            model, params, batch = smoke_case(arch, overrides=ov)
             tr = Trainer(model, AdamW(), TrainConfig(), device="cpu")
             l0, g0 = tr.value_and_grad(params, _stubbed(batch, fp32))
             dp, db = place(model.cfg, params, batch, mesh)
             l1, g1 = tr.value_and_grad(dp, _stubbed(db, fp32))
             g1 = [g.full_tensor() for g in tree_leaves(g1)]
-            out[arch] = dict(
+            out[label] = dict(
                 plain=float(l0), sharded=float(l1.full_tensor()),
                 grad_err=max(float((a - b).abs().max()
                                    / (b.abs().max() + 1e-30))
@@ -221,3 +230,128 @@ def _flat(tree):
     out = []
     tsh.map_with_path(lambda p, x: out.append((p, x)), tree)
     return sorted(out, key=lambda kv: kv[0])
+
+
+def _fp32_cache(cache):
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                    cache)
+
+
+def decode_vs_plain(rank: int, world: int, archs, mesh_shape, steps: int = 3):
+    """Per arch, in fp32: a prefill of the smoke batch's tokens and
+    ``steps`` greedy decode steps, on plain tensors and on DTensors over
+    a ``mesh_shape`` mesh (params, tokens and the cache placed by the
+    port's rules); the worst absolute logit difference of each step and
+    the cache's placements."""
+    from repro_torch.models.layers import sharded_scope
+
+    mesh = make_mesh(mesh_shape, ("data", "model"), device_type="cpu")
+    out = {}
+    set_fp32(True)
+    try:
+        for arch in archs:
+            model, params, batch = smoke_case(arch)
+            L = S + steps + 1
+            tok = batch["tokens"]
+            cache = _fp32_cache(model.init_cache(B, L, device="cpu"))
+            shape = ShapeSpec("case", L, B, "decode")
+            dp = tsh.distribute(params, mesh,
+                                tsh.param_specs(model.cfg, params, mesh))
+            dc = tsh.distribute(cache, mesh,
+                                tsh.cache_specs(model.cfg, shape, cache, mesh))
+            dt = tsh.distribute({"tokens": tok}, mesh, tsh.batch_specs(
+                model.cfg, shape, {"tokens": tok}, mesh))["tokens"]
+            with sharded_scope(dp):
+                l0, c0 = model.prefill(params, {"tokens": tok}, cache)
+                l1, c1 = model.prefill(dp, {"tokens": dt}, dc)
+                errs = [float((l1.full_tensor() - l0).abs().max())]
+                for i in range(steps):
+                    nxt = l0[:, -1:].argmax(-1).to(torch.int32)
+                    dn = tsh.distribute({"token": nxt}, mesh, tsh.batch_specs(
+                        model.cfg, shape, {"token": nxt}, mesh))["token"]
+                    l0, c0 = model.decode_step(params, nxt, S + i, c0)
+                    l1, c1 = model.decode_step(dp, dn, S + i, c1)
+                    errs.append(float((l1.full_tensor() - l0).abs().max()))
+            out[arch] = dict(errs=errs, scale=float(l0.abs().max()),
+                             placements=[str(t.placements)
+                                         for t in tree_leaves(c1)])
+    finally:
+        set_fp32(False)
+    return out
+
+
+def moe_vs_plain(rank: int, world: int, mesh_shape, cases, seed: int = 0):
+    """Per arch and capacity factor of ``cases`` ({arch: factors}): one
+    MoE layer of the arch's smoke config in fp32 on plain tensors and on
+    DTensors over a ``mesh_shape`` mesh (tokens split over "data",
+    experts or d_ff over "model" as the rules place them), the default
+    dispatch (one block, the global capacity); the outputs', aux losses'
+    and grads' worst differences, the scales, and how many assignments
+    the capacity dropped."""
+    mesh = make_mesh(mesh_shape, ("data", "model"), device_type="cpu")
+    return {arch: {cf: _moe_case(mesh, arch, cf, seed) for cf in cfs}
+            for arch, cfs in cases.items()}
+
+
+def _moe_case(mesh, arch: str, cf: float, seed: int) -> dict:
+    import dataclasses
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import sharded_scope
+
+    cfg = dataclasses.replace(get_smoke_config(arch), capacity_factor=cf)
+    p = moe.moe_init(torch.Generator().manual_seed(seed), cfg,
+                     device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    x = torch.from_numpy(rng.standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32))
+
+    def run(p, x, w):
+        y, aux = moe.moe_apply(p, cfg, x)
+        loss = (y * w).sum() + aux
+        g = torch.autograd.grad(loss, [x] + [p[k] for k in sorted(p)])
+        return y, aux, g
+
+    pl = {k: v.clone().requires_grad_() for k, v in p.items()}
+    x0 = x.clone().requires_grad_()
+    y0, a0, g0 = run(pl, x0, w)
+    n_tp = mesh.size(1)
+    ep = cfg.n_experts >= n_tp and cfg.n_experts % n_tp == 0
+    place = {"router": [Replicate(), Replicate()],
+             "w_gate": [Replicate(), Shard(0 if ep else 2)],
+             "w_up": [Replicate(), Shard(0 if ep else 2)],
+             "w_down": [Replicate(), Shard(0 if ep else 1)]}
+    dp = {k: distribute_tensor(v.clone(), mesh, place[k]).requires_grad_()
+          for k, v in p.items()}
+    dx = distribute_tensor(x.clone(), mesh, [Shard(0), Replicate()])
+    dx.requires_grad_()
+    dw = distribute_tensor(w, mesh, [Shard(0), Replicate()])
+    with sharded_scope(dp):
+        y1, a1, g1 = run(dp, dx, dw)
+    kept = _kept_assignments(p, cfg, x)
+    return dict(
+        y_err=float((y1.full_tensor() - y0).abs().max()),
+        y_scale=float(y0.abs().max()),
+        aux_err=abs(float(a1.full_tensor()) - float(a0)),
+        grad_err=max(float((a.full_tensor() - b).abs().max()
+                           / (b.abs().max() + 1e-30))
+                     for a, b in zip(g1, g0)),
+        dropped=B * S * cfg.top_k - kept)
+
+
+def _kept_assignments(p, cfg, x) -> int:
+    """How many of the top-k assignments of ``x``'s tokens the plain
+    layer's capacity keeps."""
+    from repro_torch.models import moe
+
+    xt = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(xt @ p["router"], dim=-1)
+    gate_i = torch.sort(probs, dim=-1, descending=True,
+                        stable=True)[1][:, :cfg.top_k].reshape(-1)
+    cap = moe.moe_capacity(cfg, xt.shape[0])
+    counts = torch.bincount(gate_i, minlength=cfg.n_experts)
+    return int(torch.clamp(counts, max=cap).sum())

@@ -118,3 +118,20 @@ def test_launch_modules_start_no_process_group():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_public_names_cover_the_reference():
+    """Every name ``repro`` exports, ``repro_torch`` exports too, and the
+    executor module carries the reference's ``PLAN_EXECUTORS``."""
+    import repro
+    import repro_torch
+    from repro.core.executor import PLAN_EXECUTORS as jax_plan_executors
+    from repro_torch import (  # noqa: F401
+        RTX3080_PAPER, TPU_V5E, autotune, autotune_box)
+    from repro_torch.core.executor import EXECUTORS, PLAN_EXECUTORS
+
+    assert set(repro.__all__) <= set(repro_torch.__all__), (
+        sorted(set(repro.__all__) - set(repro_torch.__all__)))
+    assert all(hasattr(repro_torch, n) for n in repro_torch.__all__)
+    assert PLAN_EXECUTORS == jax_plan_executors
+    assert set(PLAN_EXECUTORS) <= set(EXECUTORS)
