@@ -160,7 +160,9 @@ Phases, none of them caught — any failure exits non-zero:
    ``decode_32k`` on the same mesh.  Gates: the train cell's temp within
    2x the JAX package's (31.2 GB), no all-gather as large as a rank's
    slab of the vocab-sharded logits, and in the decode cell no
-   all-gather of the length-sharded cache.  No kernel of
+   all-gather of the length-sharded cache; then a tied mamba2-130m
+   smoke train step whose 250-entry vocab does not divide "model",
+   traced on a (2, 4) group, which gathers no logits.  No kernel of
    ``repro_torch.kernels`` launches.
 
 Every phase records the host's RAM peak (``MemTotal - MemAvailable``,
@@ -304,6 +306,12 @@ LM_LAUNCH_TIMEOUT_S = 600
 # layer's slice of a rank)
 LM_LAUNCH_PROD_TEMP_GB = 31.2
 LM_LAUNCH_DECODE = ("qwen3-0.6b", "decode_32k")
+# and a tied table whose vocab does not divide "model" (mamba2-130m's
+# smoke config with 250 entries, a train step of 8 x 64 tokens on a
+# (2, 4) mesh): it traces, its table's gradients meeting in their own
+# placements, and gathers no logits (none as large as a rank's rows of
+# them over the whole vocab)
+LM_LAUNCH_TIED = ("mamba2-130m", 250, (2, 4), 8, 64)
 RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
 
@@ -2162,6 +2170,15 @@ def lm_launch_production() -> dict:
     t0 = time.perf_counter()
     rec["decode"] = lower_cell(*LM_LAUNCH_DECODE, False, device="cuda")
     rec["decode"]["wall_s"] = time.perf_counter() - t0
+    from repro_torch.configs import ShapeSpec
+
+    arch, vocab, mesh, batch, seq = LM_LAUNCH_TIED
+    t0 = time.perf_counter()
+    rec["tied"] = lower_cell(arch, "train_s", False, device="cuda",
+                             smoke=True, mesh_shape=mesh,
+                             shape=ShapeSpec("train_s", seq, batch, "train"),
+                             overrides={"vocab": vocab})
+    rec["tied"]["wall_s"] = time.perf_counter() - t0
     return rec
 
 
@@ -2190,9 +2207,16 @@ def production_gates(rec: dict) -> dict:
         "largest_cache_gather": max((c["numel"] for c in cache_gathers),
                                     default=0),
         "cache_slice": cache}
+    _, vocab, (n_dp, _), batch, seq = LM_LAUNCH_TIED
+    out["tied_rows"] = batch // n_dp * seq * vocab
+    out["tied_largest_all_gather"] = max(
+        (c["numel"] for c in rec["tied"]["largest_collectives"]
+         if c["kind"] == "all-gather"), default=0)
     out["temp_ok"] = out["temp_gb"] <= LM_LAUNCH_PROD_TEMP_GB
     out["vocab_ok"] = out["largest_all_gather"] < slab
     out["cache_ok"] = out["largest_cache_gather"] < cache
+    out["tied_ok"] = (rec["tied"]["cost"]["flops"] > 0 and
+                      out["tied_largest_all_gather"] < out["tied_rows"])
     return out
 
 
@@ -2283,13 +2307,19 @@ def phase_lm_launch(out_dir: str) -> None:
             f"{g['largest_all_gather']} elements (< the logits slab "
             f"{g['logits_slab']}); decode's largest cache-shaped all-gather "
             f"{g['largest_cache_gather']} (< one layer's cache slice "
-            f"{g['cache_slice']})")
+            f"{g['cache_slice']}); tied {LM_LAUNCH_TIED[0]} smoke, vocab "
+            f"{LM_LAUNCH_TIED[1]}, on {LM_LAUNCH_TIED[2]}: trace "
+            f"{p['tied']['compile_s']} s, largest all-gather "
+            f"{g['tied_largest_all_gather']} elements (< its logits rows "
+            f"{g['tied_rows']})")
         check(g["temp_ok"], "lm_launch: train_4k temp over 2x JAX's",
               g["temp_gb"])
         check(g["vocab_ok"], "lm_launch: an all-gather of the logits",
               p["largest_collectives"])
         check(g["cache_ok"], "lm_launch: an all-gather of the cache",
               dec["largest_collectives"])
+        check(g["tied_ok"], "lm_launch: the tied ragged-vocab cell",
+              p["tied"]["largest_collectives"])
         launched = counts()
         check(sum(launched.values()) == 0, "a kernel launched", launched)
         RESULT["lm_launch"] = rec

@@ -23,7 +23,10 @@ Usage (``S`` = ``python examples/torch_dryrun_sweep.py``):
 The default cells are the ones whose partitioning the port follows the
 reference's on: ``train_4k`` on both production meshes for nine archs,
 ``decode_32k`` on (16, 16) for six, ``prefill_32k`` on (16, 16) for the
-two Mamba-2 archs.  ``--cells arch:shape:pod1,...`` picks others.
+two Mamba-2 archs.  ``--cells arch:shape:pod1,...`` picks others; a
+cell's fourth field names a flag of the dry-run CLI (e.g.
+``mixtral-8x7b:train_4k:pod1:moe-block-dispatch``), its record kept
+under ``--out``'s folder of that name.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ def _parse_cells(text: str) -> list:
 
 
 def _cost(cell) -> float:
-    arch, shape, mesh = cell
+    arch, shape, mesh = cell[:3]
     k = {"train_4k": 10, "prefill_32k": 12, "decode_32k": 1}.get(shape, 1)
     return _WEIGHT.get(arch, 1) * k * (2 if mesh == "pod2" else 1)
 
@@ -71,13 +74,20 @@ def _tag(cell) -> str:
     return "__".join(cell)
 
 
+def _record(out: str, tag: str) -> str:
+    """The record of cell ``tag`` under ``out`` (a flagged cell's in the
+    flag's folder, as the dry-run CLI names it)."""
+    parts = tag.split("__")
+    return os.path.join(out, *parts[3:], "__".join(parts[:3]) + ".json")
+
+
 def _command(cell, out: str) -> list:
-    arch, shape, mesh = cell
+    arch, shape, mesh, *flag = cell
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", shape, "--out", out]
+           "--shape", shape, "--out", os.path.join(out, *flag)]
     if mesh == "pod2":
         cmd.append("--multi-pod")
-    return cmd
+    return cmd + [f"--{f}" for f in flag]
 
 
 def sweep(cells, out: str, src: str, jobs: int, deadline: float) -> dict:
@@ -123,7 +133,7 @@ def sweep(cells, out: str, src: str, jobs: int, deadline: float) -> dict:
 def summarize(out: str, status: dict) -> dict:
     rows = {}
     for tag, st in sorted(status.items()):
-        path = os.path.join(out, tag + ".json")
+        path = _record(out, tag)
         row = dict(st)
         if os.path.exists(path):
             rec = json.load(open(path))

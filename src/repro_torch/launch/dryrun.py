@@ -205,15 +205,20 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                seq_shard_acts: bool = False, moe_block_dispatch: bool = False,
                moe_shard_map: bool = False, microbatches: int = 1,
                mesh_shape: Optional[Sequence[int]] = None, device="cuda",
-               smoke: bool = False, shape: Optional[ShapeSpec] = None):
+               smoke: bool = False, shape: Optional[ShapeSpec] = None,
+               overrides: Optional[dict] = None):
     """Trace one (arch x shape x mesh) cell on fake tensors; returns its
     record.  ``smoke`` takes the arch's smoke config; ``shape`` replaces
-    ``SHAPES[shape_name]``.  Starts (and stops) a fake process group of
-    the mesh's size unless one of that size is running."""
+    ``SHAPES[shape_name]``; ``overrides`` replaces config fields.  Starts
+    (and stops) a fake process group of the mesh's size unless one of
+    that size is running."""
+    import dataclasses
+
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    cfg = (get_smoke_config if smoke else get_config)(arch)
+    cfg = dataclasses.replace((get_smoke_config if smoke else get_config)(
+        arch), **(overrides or {}))
     shape = shape or SHAPES[shape_name]
     ok, why = cell_supported(cfg, shape)
     if not ok:

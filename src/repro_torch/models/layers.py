@@ -193,15 +193,15 @@ def all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
 def all_gather(t: torch.Tensor, dim: int, mesh, dims) -> torch.Tensor:
     """The ranks' ``t`` concatenated along ``dim`` over the mesh ``dims``
     (the last of them fastest, as DTensor splits a dim); under autograd its
-    backward is the matching reduce-scatter."""
-    return _Gather.apply(t, dim, mesh, tuple(dims))
+    backward is the matching reduce-scatter.  No ``dims``: ``t``."""
+    return _Gather.apply(t, dim, mesh, tuple(dims)) if dims else t
 
 
 def reduce_scatter(t: torch.Tensor, dim: int, mesh, dims) -> torch.Tensor:
     """``t`` summed over the mesh ``dims`` and split along ``dim``, each
     rank keeping its piece (the inverse layout of :func:`all_gather`);
-    under autograd its backward is that all-gather."""
-    return _Scatter.apply(t, dim, mesh, tuple(dims))
+    under autograd its backward is that all-gather.  No ``dims``: ``t``."""
+    return _Scatter.apply(t, dim, mesh, tuple(dims)) if dims else t
 
 
 def _gather(t, dim, mesh, dims):

@@ -92,10 +92,9 @@ def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None,
     order: the pieces in DTensor's order), routed as that whole block
     is, under the whole block's capacity ``cap``: each expert's queue
     positions are offset by the earlier pieces' counts (an all-gather of
-    E counts), the expert buffers are reduce-scattered over ``dims`` along
-    their capacity slots, so each rank runs the expert GEMMs on its share
-    of the slots, and gathered back; the aux loss is this piece's share
-    of the whole block's.
+    E counts), and each rank runs the expert GEMMs on its share of the
+    capacity slots (:func:`_expert_rows`); the aux loss is this piece's
+    share of the whole block's.
     """
     E, K = cfg.n_experts, cfg.top_k
     Tb, D = xt.shape
@@ -115,79 +114,86 @@ def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None,
     pos = pos.gather(1, eflat[:, None])[:, 0]
 
     # load-balancing aux loss (Switch/GShard)
+    mesh, dims = shard if shard is not None else (None, ())
+    k, n = shard_index(mesh, dims)
     if shard is None:
         me = probs.mean(dim=0)                               # (E,)
         ce = F.one_hot(gate_i, E).float().sum(dim=1).mean(dim=0)
         aux = E * (me * ce).sum()
-        slots = cap
     else:
-        mesh, dims = shard
-        k, n = shard_index(mesh, dims)
         counts = all_gather(onehot.sum(dim=0)[None], 0, mesh, dims)
         pos = pos + counts[:k].sum(dim=0)[eflat]
-        T = Tb * n
-        ce = counts.sum(dim=0).float() / T
-        aux = E * (probs.sum(dim=0) / T * ce).sum()
-        slots = -(-cap // n) * n       # a whole share of slots per rank
+        ce = counts.sum(dim=0).float() / (Tb * n)
+        aux = E * (probs.sum(dim=0) / (Tb * n) * ce).sum()
     keep = pos < cap
     slot = torch.where(keep, pos, torch.zeros_like(pos)).long()
+    slots = -(-cap // n) * n           # a whole share of slots per rank
 
-    xt_rep = torch.repeat_interleave(xt, K, dim=0)           # (Tb*K, D)
-    if shard is not None:
-        buf, flat, wmask = _shard_buffers(xt_rep, eflat, slot, keep, slots,
-                                          E, experts, mesh, dims)
-    else:
-        # dispatch: (E, C, D) expert buffers, filled through a flat (E·C,
-        # D) view
-        contrib = xt_rep * keep[:, None].to(xt.dtype)
-        flat = eflat * cap + slot
-        buf = torch.zeros((E * cap, D), dtype=xt.dtype, device=xt.device)
-        buf.index_add_(0, flat, contrib)
-        buf = buf.view(E, cap, D)
-
-        wmask = keep
-        if experts is not None:
-            e0, n = experts
-            buf = buf[e0:e0 + n]
-            local = (eflat >= e0) & (eflat < e0 + n)
-            wmask = keep & local
-            flat = torch.where(local, flat - e0 * cap, torch.zeros_like(flat))
-
-    # grouped expert GEMMs (weights cast to the activation dtype at use)
-    g = torch.bmm(buf, p["w_gate"].to(xt.dtype))
-    u = torch.bmm(buf, p["w_up"].to(xt.dtype))
-    h = F.silu(g) * u
-    out = torch.bmm(h, p["w_down"].to(xt.dtype))
-    if shard is not None:
-        out = all_gather(out, 1, mesh, dims)
-
-    # combine
-    y = out.reshape(-1, D)[flat] * (
-        gate_w.reshape(-1)[:, None] * wmask[:, None]).to(xt.dtype)
-    y = y.reshape(Tb, K, D).sum(dim=1)
-    return y, aux
-
-
-def _shard_buffers(xt_rep, eflat, slot, keep, slots: int, n_experts: int,
-                   experts, mesh, dims):
-    """The expert buffers of a block split over the mesh ``dims``: this
-    piece's kept assignments (of its experts only, under EP) in a local
-    (n, slots, D) buffer, zero elsewhere, reduce-scattered over ``dims``
-    along the slots.  Returns (buffer share, flat row of each assignment
-    in the gathered buffer, its combine mask)."""
-    n, wmask = n_experts, keep
+    # each kept assignment of the experts held here (all, or EP's e0..)
+    # at its row of the block's (n_exp, slots, D) expert buffer
+    n_exp, wmask = E, keep
     if experts is not None:
-        e0, n = experts
-        local = (eflat >= e0) & (eflat < e0 + n)
+        e0, n_exp = experts
+        local = (eflat >= e0) & (eflat < e0 + n_exp)
         wmask = keep & local
         eflat = torch.where(local, eflat - e0, torch.zeros_like(eflat))
     flat = eflat * slots + slot
-    D = xt_rep.shape[-1]
-    contrib = xt_rep * wmask[:, None].to(xt_rep.dtype)
-    buf = torch.zeros((n * slots, D), dtype=xt_rep.dtype,
-                      device=xt_rep.device)
-    buf = buf.index_add(0, flat, contrib).view(n, slots, D)
-    return reduce_scatter(buf, 1, mesh, dims), flat, wmask
+    gate = gate_w.reshape(-1) * wmask                        # (Tb*K,)
+    return _expert_rows(xt, p, flat, wmask, gate, n_exp, slots, K, mesh,
+                        dims), aux
+
+
+def _expert_ffn(p, buf):
+    """The grouped expert GEMMs (weights cast to the activation dtype at
+    use): (n, rows, D) -> (n, rows, D)."""
+    g = torch.bmm(buf, p["w_gate"].to(buf.dtype))
+    u = torch.bmm(buf, p["w_up"].to(buf.dtype))
+    return torch.bmm(F.silu(g) * u, p["w_down"].to(buf.dtype))
+
+
+def _expert_rows(xt, p, flat, wmask, gate, n_exp: int, slots: int, K: int,
+                 mesh, dims):
+    """Dispatch, expert GEMMs and combine of the (Tb·K,) assignments at
+    rows ``flat`` of an (n_exp, slots, D) expert buffer (kept where
+    ``wmask``, weighted by ``gate``) -> y (Tb, D).  Over the mesh
+    ``dims`` (the block split in n pieces, one a rank) each rank runs the
+    GEMMs on its share of the slots, filled by whichever is smaller: the
+    buffer itself, built from this piece's rows and reduce-scattered
+    along its slots (its outputs all-gathered back), or the block's
+    tokens, all-gathered with the assignments' rows and gates (its
+    outputs summed into the block's tokens and reduce-scattered back).
+    No ``dims``: the plain layer's buffer."""
+    Tb, D = xt.shape
+    k, n = shard_index(mesh, dims)
+    if not dims or n * Tb >= n_exp * slots:
+        contrib = torch.repeat_interleave(xt, K, dim=0) * wmask[:, None].to(
+            xt.dtype)
+        buf = xt.new_zeros((n_exp * slots, D)).index_add(0, flat, contrib)
+        out = _expert_ffn(p, reduce_scatter(buf.view(n_exp, slots, D), 1,
+                                            mesh, dims))
+        y = all_gather(out, 1, mesh, dims).reshape(-1, D)[flat]
+        return (y * gate[:, None].to(xt.dtype)).reshape(Tb, K, D).sum(dim=1)
+
+    # the block's tokens and assignment table; this rank's rows are slots
+    # k·s .. (k+1)·s - 1 of each expert, row ``dump`` takes the others
+    T, s = n * Tb, slots // n
+    table = all_gather(torch.stack([flat, wmask.long()]), 1, mesh, dims)
+    gates = all_gather(gate, 0, mesh, dims)
+    xg = all_gather(xt, 0, mesh, dims)
+    e, sl = table[0] // slots, table[0] % slots - k * s
+    mine = table[1].bool() & (sl >= 0) & (sl < s)
+    dump = n_exp * s
+    row = torch.where(mine, e * s + sl, torch.full_like(sl, dump))
+    tok = torch.arange(T * K, device=xt.device) // K
+    # the token of each row (T, a zero row, where no kept assignment is)
+    src = torch.full((dump + 1,), T, dtype=torch.long,
+                     device=xt.device).scatter(
+        0, row, torch.where(mine, tok, torch.full_like(tok, T)))[:dump]
+    w = gates.new_zeros(dump + 1).index_add(0, row, gates * mine)[:dump]
+    buf = torch.cat([xg, xg.new_zeros((1, D))])[src].view(n_exp, s, D)
+    out = _expert_ffn(p, buf).reshape(-1, D) * w[:, None].to(xt.dtype)
+    yg = xg.new_zeros((T + 1, D)).index_add(0, src, out)[:T]
+    return reduce_scatter(yg, 0, mesh, dims)
 
 
 def _mesh_dims(mesh, axes) -> list:

@@ -242,15 +242,19 @@ def decode_vs_plain(rank: int, world: int, archs, mesh_shape, steps: int = 3):
     ``steps`` greedy decode steps, on plain tensors and on DTensors over
     a ``mesh_shape`` mesh (params, tokens and the cache placed by the
     port's rules); the worst absolute logit difference of each step and
-    the cache's placements."""
+    the cache's placements and length.  An entry of ``archs`` may be
+    ``(label, arch, overrides)``: that arch with its smoke config's
+    fields replaced, reported under ``label``."""
     from repro_torch.models.layers import sharded_scope
 
     mesh = make_mesh(mesh_shape, ("data", "model"), device_type="cpu")
     out = {}
     set_fp32(True)
     try:
-        for arch in archs:
-            model, params, batch = smoke_case(arch)
+        for entry in archs:
+            label, arch, ov = ((entry, entry, None) if isinstance(entry, str)
+                               else entry)
+            model, params, batch = smoke_case(arch, overrides=ov)
             L = S + steps + 1
             tok = batch["tokens"]
             cache = _fp32_cache(model.init_cache(B, L, device="cpu"))
@@ -272,9 +276,10 @@ def decode_vs_plain(rank: int, world: int, archs, mesh_shape, steps: int = 3):
                     l0, c0 = model.decode_step(params, nxt, S + i, c0)
                     l1, c1 = model.decode_step(dp, dn, S + i, c1)
                     errs.append(float((l1.full_tensor() - l0).abs().max()))
-            out[arch] = dict(errs=errs, scale=float(l0.abs().max()),
-                             placements=[str(t.placements)
-                                         for t in tree_leaves(c1)])
+            out[label] = dict(errs=errs, scale=float(l0.abs().max()),
+                              cache_len=int(tree_leaves(c0)[0].shape[2]),
+                              placements=[str(t.placements)
+                                          for t in tree_leaves(c1)])
     finally:
         set_fp32(False)
     return out

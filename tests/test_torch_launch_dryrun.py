@@ -126,10 +126,11 @@ def test_block_dispatch_changes_the_moe_work():
     base = _cell("llama4-maverick-400b-a17b", "train")
     blocks = _cell("llama4-maverick-400b-a17b", "train",
                    moe_block_dispatch=True)
-    # per-data-shard dispatch: each rank routes half the tokens, with a
-    # capacity of its own; the default dispatch routes each data shard's
-    # rows too (under the whole batch's capacity), so the two do the
-    # same work, half of the one-rank mesh's
+    # per-data-shard dispatch changes each rank's MoE work from the
+    # one-rank mesh's to half of it: each rank routes half the tokens,
+    # with a capacity of its own.  The default dispatch now routes each
+    # data shard's rows too (under the whole batch's capacity), so it
+    # does the same work as the blocks
     assert blocks["cost"]["flops"] < 0.55 * one["cost"]["flops"]
     assert abs(blocks["cost"]["flops"] - base["cost"]["flops"]) <= (
         0.01 * base["cost"]["flops"])

@@ -11,10 +11,16 @@ reference's are, on the CPU.
 * A decode step against a length-sharded cache (the rules' split-KV
   fallback, where the kv heads do not divide "model") is a split-KV
   region.  qwen3's smoke ``decode_32k`` on a fake (1, 4) group gathers
-  no cache (before, 1073.8 MB: the whole cache), and prefill plus three
-  greedy decode steps on a (1, 4) gloo mesh equal the plain ones within
-  1e-5 in fp32, for a full cache, a sliding-window ring and an MoE
-  model.
+  no cache (before, 1073.8 MB: the whole cache), and prefill plus
+  greedy decode steps on a gloo mesh equal the plain ones within 1e-5
+  in fp32, seven steps each: on (1, 4) for a full cache of 24 entries
+  (a sliding-window model and an MoE model among them), and past the
+  end of an 8-entry sliding-window ring (the window cut to 8 below the
+  prompt's 16 tokens), so the new token's slot wraps from rank to rank;
+  on (1, 8), where the 4 query heads do not divide "model" either, the
+  prefill runs sequence-parallel before the split-KV steps, through a
+  full cache of 24 entries and through the 8-entry ring (one slot a
+  rank).
 """
 import math
 
@@ -70,20 +76,37 @@ def test_decode_gathers_no_cache():
         rec["largest_collectives"])
 
 
+RING = {"sliding_window": 8}
+WRAP = [(f"{a}/ring8", a, RING) for a in ("h2o-danube-1.8b", "mixtral-8x7b")]
+# (mesh, steps): decode entries and the cache length each must have
+DECODES = {
+    ((1, 4), 7): {"qwen3-0.6b": 24, "h2o-danube-1.8b": 24,
+                  "mixtral-8x7b": 24, **{label: 8 for label, _, _ in WRAP}},
+    ((1, 8), 7): {"qwen3-0.6b": 24, "h2o-danube-1.8b/ring8": 8},
+}
+
+
+def _entries(names):
+    return [next((w for w in WRAP if w[0] == n), n) for n in names]
+
+
 @pytest.fixture(scope="module")
 def decodes():
-    out = run_spmd(ranks.decode_vs_plain, 4,
-                   ["qwen3-0.6b", "h2o-danube-1.8b", "mixtral-8x7b"], (1, 4),
-                   timeout=TIMEOUT)[0]
+    out = {key: run_spmd(ranks.decode_vs_plain, math.prod(key[0]),
+                         _entries(want), key[0], key[1],
+                         timeout=TIMEOUT)[0]
+           for key, want in DECODES.items()}
     assert not spmd_processes()
     return out
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-1.8b",
-                                  "mixtral-8x7b"])
-def test_split_kv_decode_equals_plain(arch, decodes):
-    r = decodes[arch]
+@pytest.mark.parametrize("key,arch", [
+    pytest.param(key, a, id=a if key[0] == (1, 4) else f"{a}-1x8")
+    for key, want in DECODES.items() for a in want])
+def test_split_kv_decode_equals_plain(key, arch, decodes):
+    r = decodes[key][arch]
     # the cache's length (dim 2 of the stacked (L, B, len, G, hd)) is
-    # split over "model": 2 kv heads do not divide 4
+    # split over "model": 2 kv heads do not divide 4 or 8
     assert r["placements"][0] == "(Shard(dim=1), Shard(dim=2))", r
+    assert r["cache_len"] == DECODES[key][arch], r
     assert max(r["errs"]) <= 1e-5 * max(r["scale"], 1.0), r

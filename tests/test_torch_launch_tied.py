@@ -15,8 +15,6 @@ the logits' uneven vocab split (250 over 4) as it is.
   vocab give the plain loss and grads (loss 1e-5, grads 1e-4 of a
   leaf's max, fp32).
 """
-import dataclasses
-
 import pytest
 
 from _torch_spmd import run_spmd, spmd_processes
@@ -29,13 +27,11 @@ RAGGED = [(f"{a}/V=250", a, {"vocab": 250})
           for a in ("mamba2-130m", "qwen3-0.6b")]
 
 
-def test_tied_ragged_vocab_trains_on_a_data_and_model_mesh(monkeypatch):
-    smoke = dryrun.get_smoke_config
-    monkeypatch.setattr(dryrun, "get_smoke_config",
-                        lambda a: dataclasses.replace(smoke(a), vocab=250))
+def test_tied_ragged_vocab_trains_on_a_data_and_model_mesh():
     shape = ShapeSpec("train_s", 64, 8, "train")
     rec = dryrun.lower_cell("mamba2-130m", shape.name, False, device="cpu",
-                            smoke=True, mesh_shape=(2, 4), shape=shape)
+                            smoke=True, mesh_shape=(2, 4), shape=shape,
+                            overrides={"vocab": 250})
     assert rec["cost"]["flops"] > 0
     gathers = [c["numel"] for c in rec["largest_collectives"]
                if c["kind"] == "all-gather"]
