@@ -158,11 +158,16 @@ Phases, none of them caught — any failure exits non-zero:
    of a fake group of 256 ranks: trace seconds, per-device FLOPs,
    bytes, memory, collectives and the roofline terms; then qwen3-0.6b
    ``decode_32k`` on the same mesh.  Gates: the train cell's temp within
-   2x the JAX package's (31.2 GB), no all-gather as large as a rank's
-   slab of the vocab-sharded logits, and in the decode cell no
-   all-gather of the length-sharded cache; then a tied mamba2-130m
+   2x the JAX package's (31.2 GB), no all-gather or all-reduce as large
+   as a rank's slab of the vocab-sharded logits, and in the decode cell
+   no all-gather of the length-sharded cache; then a tied mamba2-130m
    smoke train step whose 250-entry vocab does not divide "model",
-   traced on a (2, 4) group, which gathers no logits.  No kernel of
+   traced on a (2, 4) group, which gathers no logits; the mixtral-8x7b
+   smoke train cell on (16, 16), which neither all-reduces nor
+   all-gathers a tensor as large as a rank's logits over the whole
+   vocab; and mixtral-8x7b ``decode_32k`` at full width on (16, 16),
+   which gathers no expert weight and puts at most 0.76 GB on the wire
+   (1.25x the JAX package's record of it).  No kernel of
    ``repro_torch.kernels`` launches.
 
 Every phase records the host's RAM peak (``MemTotal - MemAvailable``,
@@ -300,10 +305,10 @@ LM_LAUNCH_PROD = ("qwen3-0.6b", "train_4k")
 LM_LAUNCH_TIMEOUT_S = 600
 # the production cells' partitioning gates: the train cell's temp within
 # 2x the JAX package's record of it (15.6 GB on (16, 16)), and no
-# all-gather of the vocab-sharded logits (none as large as a rank's
-# slab of them) nor, in the decode cell, of the length-sharded cache
-# (none with its (kv heads, head dim) trailing dims as large as one
-# layer's slice of a rank)
+# all-gather or all-reduce of the vocab-sharded logits (none as large
+# as a rank's slab of them) nor, in the decode cell, of the
+# length-sharded cache (none with its (kv heads, head dim) trailing dims
+# as large as one layer's slice of a rank)
 LM_LAUNCH_PROD_TEMP_GB = 31.2
 LM_LAUNCH_DECODE = ("qwen3-0.6b", "decode_32k")
 # and a tied table whose vocab does not divide "model" (mamba2-130m's
@@ -312,6 +317,15 @@ LM_LAUNCH_DECODE = ("qwen3-0.6b", "decode_32k")
 # placements, and gathers no logits (none as large as a rank's rows of
 # them over the whole vocab)
 LM_LAUNCH_TIED = ("mamba2-130m", 250, (2, 4), 8, 64)
+# and the MoE cells: mixtral-8x7b's smoke train_4k on (16, 16), whose
+# residual stream the head must meet anchored (no collective result as
+# large as a rank's logits over the whole vocab), and its decode_32k at
+# full width, whose few tokens go to the FSDP-split expert weights (no
+# all-gather of an expert weight; wire bytes, an all-reduce counted
+# twice, within 1.25x the JAX package's 0.61 GB)
+LM_LAUNCH_MOE = ("mixtral-8x7b", "train_4k", (16, 16))
+LM_LAUNCH_MOE_DECODE = ("mixtral-8x7b", "decode_32k")
+LM_LAUNCH_MOE_WIRE_GB = 0.76
 RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
 
@@ -2179,6 +2193,15 @@ def lm_launch_production() -> dict:
                              shape=ShapeSpec("train_s", seq, batch, "train"),
                              overrides={"vocab": vocab})
     rec["tied"]["wall_s"] = time.perf_counter() - t0
+    arch, shape, mesh = LM_LAUNCH_MOE
+    t0 = time.perf_counter()
+    rec["moe"] = lower_cell(arch, shape, False, device="cuda", smoke=True,
+                            mesh_shape=mesh)
+    rec["moe"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["moe_decode"] = lower_cell(*LM_LAUNCH_MOE_DECODE, False,
+                                   device="cuda")
+    rec["moe_decode"]["wall_s"] = time.perf_counter() - t0
     return rec
 
 
@@ -2186,6 +2209,7 @@ def production_gates(rec: dict) -> dict:
     """The (d) records' partitioning gates (see LM_LAUNCH_PROD_TEMP_GB):
     the numbers each is judged on, and whether it holds."""
     from repro_torch.configs import SHAPES
+    from repro_torch.launch.collectives import RING_FACTORS
 
     cfg = get_config(LM_LAUNCH_PROD[0])
     train, dec = SHAPES[LM_LAUNCH_PROD[1]], SHAPES[LM_LAUNCH_DECODE[1]]
@@ -2203,6 +2227,9 @@ def production_gates(rec: dict) -> dict:
     out = {
         "temp_gb": rec["memory"]["temp_size_in_bytes"] / 1e9,
         "largest_all_gather": max((c["numel"] for c in gathers), default=0),
+        "largest_all_reduce": max(
+            (c["numel"] for c in rec["largest_collectives"]
+             if c["kind"] == "all-reduce"), default=0),
         "logits_slab": slab,
         "largest_cache_gather": max((c["numel"] for c in cache_gathers),
                                     default=0),
@@ -2212,11 +2239,39 @@ def production_gates(rec: dict) -> dict:
     out["tied_largest_all_gather"] = max(
         (c["numel"] for c in rec["tied"]["largest_collectives"]
          if c["kind"] == "all-gather"), default=0)
+    moe = get_smoke_config(LM_LAUNCH_MOE[0])
+    n_dp = LM_LAUNCH_MOE[2][0]
+    out["moe_logits"] = (SHAPES[LM_LAUNCH_MOE[1]].global_batch // n_dp
+                         * SHAPES[LM_LAUNCH_MOE[1]].seq_len * moe.vocab)
+    # (by its vocab-wide last dim, whole or a rank's slice of it: the
+    # designed gather of the block's tokens is larger, with D columns)
+    vocab = (moe.vocab, moe.vocab // LM_LAUNCH_MOE[2][1])
+    out["moe_largest"] = max(
+        (c["numel"] for c in rec["moe"]["largest_collectives"]
+         if c["kind"] in ("all-reduce", "all-gather")
+         and c["shape"][-1] in vocab), default=0)
+    full = get_config(LM_LAUNCH_MOE_DECODE[0])
+    n_tp = rec["moe_decode"]["mesh"]["model"]
+    D, F = full.d_model, full.d_ff
+    weights = {s for d in (D, D // rec["moe_decode"]["mesh"]["data"])
+               for f in (F, F // n_tp) for s in ((d, f), (f, d))}
+    out["moe_weight_gathers"] = [
+        c["shape"] for c in rec["moe_decode"]["largest_collectives"]
+        if c["kind"] == "all-gather" and len(c["shape"]) >= 3
+        and tuple(c["shape"][-2:]) in weights]
+    out["moe_decode_wire_gb"] = sum(
+        v * RING_FACTORS[k]
+        for k, v in rec["moe_decode"]["collectives"].items()) / 1e9
     out["temp_ok"] = out["temp_gb"] <= LM_LAUNCH_PROD_TEMP_GB
-    out["vocab_ok"] = out["largest_all_gather"] < slab
+    out["vocab_ok"] = max(out["largest_all_gather"],
+                          out["largest_all_reduce"]) < slab
     out["cache_ok"] = out["largest_cache_gather"] < cache
     out["tied_ok"] = (rec["tied"]["cost"]["flops"] > 0 and
                       out["tied_largest_all_gather"] < out["tied_rows"])
+    out["moe_ok"] = (rec["moe"]["cost"]["flops"] > 0
+                     and out["moe_largest"] < out["moe_logits"])
+    out["moe_decode_ok"] = (not out["moe_weight_gathers"] and
+                            out["moe_decode_wire_gb"] <= LM_LAUNCH_MOE_WIRE_GB)
     return out
 
 
@@ -2304,22 +2359,37 @@ def phase_lm_launch(out_dir: str) -> None:
                         for k, v in dec["collectives"].items() if v))
         log(f"lm_launch partitioning gates: train temp {g['temp_gb']:.2f} GB "
             f"(<= {LM_LAUNCH_PROD_TEMP_GB}); largest all-gather "
-            f"{g['largest_all_gather']} elements (< the logits slab "
+            f"{g['largest_all_gather']} and all-reduce "
+            f"{g['largest_all_reduce']} elements (< the logits slab "
             f"{g['logits_slab']}); decode's largest cache-shaped all-gather "
             f"{g['largest_cache_gather']} (< one layer's cache slice "
             f"{g['cache_slice']}); tied {LM_LAUNCH_TIED[0]} smoke, vocab "
             f"{LM_LAUNCH_TIED[1]}, on {LM_LAUNCH_TIED[2]}: trace "
             f"{p['tied']['compile_s']} s, largest all-gather "
             f"{g['tied_largest_all_gather']} elements (< its logits rows "
-            f"{g['tied_rows']})")
+            f"{g['tied_rows']}); {LM_LAUNCH_MOE[0]} smoke "
+            f"{LM_LAUNCH_MOE[1]} on {LM_LAUNCH_MOE[2]}: trace "
+            f"{p['moe']['compile_s']} s, largest vocab-wide all-reduce or "
+            f"all-gather {g['moe_largest']} elements (< a rank's logits "
+            f"{g['moe_logits']}); {LM_LAUNCH_MOE_DECODE[0]} "
+            f"{LM_LAUNCH_MOE_DECODE[1]} (full width): trace "
+            f"{p['moe_decode']['compile_s']} s, wire "
+            f"{g['moe_decode_wire_gb']:.4f} GB (<= {LM_LAUNCH_MOE_WIRE_GB}), "
+            f"expert-weight all-gathers {g['moe_weight_gathers']} (none)")
         check(g["temp_ok"], "lm_launch: train_4k temp over 2x JAX's",
               g["temp_gb"])
-        check(g["vocab_ok"], "lm_launch: an all-gather of the logits",
+        check(g["vocab_ok"], "lm_launch: an all-gather or all-reduce of "
+              "the logits",
               p["largest_collectives"])
         check(g["cache_ok"], "lm_launch: an all-gather of the cache",
               dec["largest_collectives"])
         check(g["tied_ok"], "lm_launch: the tied ragged-vocab cell",
               p["tied"]["largest_collectives"])
+        check(g["moe_ok"], "lm_launch: a logits-sized collective in the "
+              "MoE train cell", p["moe"]["largest_collectives"])
+        check(g["moe_decode_ok"], "lm_launch: the MoE decode cell gathers "
+              "expert weights or passes its wire bytes",
+              g["moe_decode_wire_gb"], p["moe_decode"]["largest_collectives"])
         launched = counts()
         check(sum(launched.values()) == 0, "a kernel launched", launched)
         RESULT["lm_launch"] = rec

@@ -5,16 +5,24 @@ Runs ``python -m repro_torch.launch.dryrun`` once per cell, ``--jobs``
 processes at a time, the costliest cells first, each cell's JSON record
 written under ``--out`` and a ``summary.json`` beside them: per cell its
 status, trace seconds, per-device TFLOP, arguments and temp GB,
-collective GB per kind and the largest all-gather result (port records
-only).  ``--src`` runs the code of another checkout (its ``src/``), so a
-parent commit and this one can be traced in one call.  ``--table``
+collective GB per kind, wire GB (their sum, an all-reduce counted
+twice: the ring factors of the dry run's roofline) and the largest
+all-gather result (port records only).  Cells are compared on wire GB:
+one kind of collective alone (an all-gather) says little, as XLA and
+DTensor spend collectives of different kinds on the same program.
+``--src`` runs the code of another checkout (its ``src/``), so a parent
+commit and this one can be traced in one call.  ``--table``
 prints the summaries of dry-run directories side by side as a markdown
 table, with no tracing; a directory of records without a summary (the
 JAX package's ``python -m repro.launch.dryrun --all --both-meshes``)
 gets one made from its records.
 
+``--device`` is the fake tensors' device (``cuda``, the default, or
+``cpu`` on a machine with no card).
+
 Usage (``S`` = ``python examples/torch_dryrun_sweep.py``):
     S --out artifacts/dry_after
+    S --device cpu --out artifacts/dry_cpu
     S --src <parent checkout> --out artifacts/dry_before
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.dryrun \
         --all --both-meshes --out artifacts/dry_jax
@@ -81,16 +89,18 @@ def _record(out: str, tag: str) -> str:
     return os.path.join(out, *parts[3:], "__".join(parts[:3]) + ".json")
 
 
-def _command(cell, out: str) -> list:
+def _command(cell, out: str, device: str = "cuda") -> list:
     arch, shape, mesh, *flag = cell
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", shape, "--out", os.path.join(out, *flag)]
+           "--shape", shape, "--out", os.path.join(out, *flag),
+           "--device", device]
     if mesh == "pod2":
         cmd.append("--multi-pod")
     return cmd + [f"--{f}" for f in flag]
 
 
-def sweep(cells, out: str, src: str, jobs: int, deadline: float) -> dict:
+def sweep(cells, out: str, src: str, jobs: int, deadline: float,
+          device: str = "cuda") -> dict:
     """Trace ``cells``, ``jobs`` processes at a time, until ``deadline``
     seconds have passed (a cell still running then is killed and marked
     CUT, a cell not started NOT RUN).  Returns {tag: status}."""
@@ -106,7 +116,7 @@ def sweep(cells, out: str, src: str, jobs: int, deadline: float) -> dict:
                 cell = queue.pop(0)
                 log = open(os.path.join(out, _tag(cell) + ".log"), "w")
                 running[cell] = (subprocess.Popen(
-                    _command(cell, os.path.abspath(out)), cwd=src,
+                    _command(cell, os.path.abspath(out), device), cwd=src,
                     env=env, stdout=log, stderr=subprocess.STDOUT),
                     time.monotonic())
                 logs[cell] = log
@@ -149,7 +159,8 @@ def summarize(out: str, status: dict) -> dict:
                     arguments_gb=mem["argument_size_in_bytes"] / 1e9,
                     temp_gb=mem["temp_size_in_bytes"] / 1e9,
                     collectives_gb={k: v / 1e9 for k, v in
-                                    rec["collectives"].items() if v})
+                                    rec["collectives"].items() if v},
+                    wire_gb=wire_bytes(rec["collectives"]) / 1e9)
                 gathers = [c for c in rec.get("largest_collectives", ())
                            if c["kind"] == "all-gather"]
                 if gathers:
@@ -160,6 +171,16 @@ def summarize(out: str, status: dict) -> dict:
     with open(os.path.join(out, "summary.json"), "w") as f:
         json.dump(rows, f, indent=1)
     return rows
+
+
+# bytes on the wire per result byte, per kind (the dry run's roofline's)
+RING = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
+        "all-to-all": 1.0, "collective-permute": 1.0}
+
+
+def wire_bytes(colls: dict) -> float:
+    """A record's collective result bytes weighted by :data:`RING`."""
+    return sum(v * RING.get(k, 1.0) for k, v in colls.items())
 
 
 def _fmt(row, key) -> str:
@@ -191,11 +212,15 @@ def table(dirs) -> str:
                                                      t.split("__")[2], t))
     head = "| cell | " + " | ".join(
         f"{k} {os.path.basename(os.path.normpath(d))}"
-        for k in ("temp GB", "TFLOP", "all-gather GB") for d in dirs) + " |"
-    lines = [head, "|" + "---|" * (1 + 3 * len(dirs))]
+        for k in ("temp GB", "TFLOP", "wire GB", "all-gather GB")
+        for d in dirs) + " |"
+    lines = [head, "|" + "---|" * (1 + 4 * len(dirs))]
     for tag in tags:
         cells = [_fmt(s.get(tag), "temp_gb") for s in sums]
         cells += [_fmt(s.get(tag), "tflop") for s in sums]
+        cells += [(f"{wire_bytes(s[tag]['collectives_gb']):.1f}"
+                   if tag in s and "collectives_gb" in s[tag]
+                   else _fmt(s.get(tag), "-")) for s in sums]
         cells += [(f"{s[tag]['collectives_gb'].get('all-gather', 0.0):.1f}"
                    if tag in s and "collectives_gb" in s[tag]
                    else _fmt(s.get(tag), "-")) for s in sums]
@@ -212,6 +237,8 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=8)
     ap.add_argument("--deadline", type=float, default=1800.0,
                     help="seconds before running cells are cut")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the fake tensors (cuda, or cpu)")
     ap.add_argument("--cells", default=None,
                     help="arch:shape:pod1|pod2,... (default: the sweep's)")
     ap.add_argument("--table", nargs="+", default=None,
@@ -223,7 +250,7 @@ def main(argv=None) -> int:
     cells = _parse_cells(args.cells) if args.cells else default_cells()
     t0 = time.monotonic()
     status = sweep(cells, args.out, os.path.abspath(args.src), args.jobs,
-                   args.deadline)
+                   args.deadline, args.device)
     rows = summarize(args.out, status)
     for tag, row in rows.items():
         print(tag, json.dumps(row), flush=True)

@@ -49,6 +49,9 @@ _KINDS = {
     ("c10d", "alltoall_"): "all-to-all",
     ("c10d", "alltoall_base_"): "all-to-all",
     ("c10d", "send"): "collective-permute",
+    # DTensor's move of a shard from one dim to another on a CUDA mesh
+    # (on a CPU mesh it falls back to an all-gather, counted as one)
+    ("_dtensor", "shard_dim_alltoall"): "all-to-all",
 }
 
 

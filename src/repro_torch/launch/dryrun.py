@@ -66,6 +66,7 @@ from ..models.layers import set_activation_sharding, set_attention_sharding
 from ..models.moe import set_moe_block_dispatch, set_moe_shard_map
 from ..optim import AdamW, OptState
 from ..train import TrainConfig, Trainer
+from .collectives import RING_FACTORS
 from .mesh import (
     data_axes, make_mesh, mesh_sizes, production_shape, start_fake_group,
     stop_group,
@@ -87,15 +88,11 @@ FP32_PEAK = H100_SXM.peak_vpu_flops  # 67 TFLOP/s fp32, CUDA cores (data sheet)
 HBM_BW = H100_SXM.bw_dmem          # 3.35 TB/s HBM3 (data sheet)
 LINK_BW = 450e9                    # NVLink 4, bytes/s per direction (data sheet)
 
-_RING = (("all-gather", 1.0), ("all-reduce", 2.0), ("reduce-scatter", 1.0),
-         ("all-to-all", 1.0), ("collective-permute", 1.0))
-
-
 def _roofline(cost, colls, n_chips, model_flops):
     """Three roofline terms (seconds, per step) + dominant bottleneck."""
     t_compute = cost["flops"] / BF16_PEAK           # per-device flops already
     t_memory = cost["bytes_accessed"] / HBM_BW
-    t_coll = sum(colls[k] * f for k, f in _RING) / LINK_BW
+    t_coll = sum(colls[k] * f for k, f in RING_FACTORS.items()) / LINK_BW
     terms = {"compute": t_compute, "memory": t_memory, "collective": t_coll}
     dom = max(terms, key=terms.get)
     useful = model_flops / n_chips

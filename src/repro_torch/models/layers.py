@@ -182,12 +182,31 @@ def _waited(t):
 
 def all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
     """``t`` reduced by ``op`` ("sum", "max") over the mesh ``dims``, in
-    turn (no autograd: the callers' own backward needs none)."""
+    turn.  Under autograd a sum's backward is the same all-reduce of the
+    gradient (each rank's result feeds that rank's own outputs); a max
+    has none (its callers' own backward needs none)."""
+    if op == "sum" and dims:
+        return _Sum.apply(t, mesh, tuple(dims))
+    return _reduce(t, op, mesh, dims)
+
+
+def _reduce(t, op, mesh, dims):
     import torch.distributed._functional_collectives as funcol
 
     for d in dims:
         t = _waited(funcol.all_reduce(t, op, mesh.get_group(d)))
     return t
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.args = (mesh, dims)
+        return _reduce(t, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, "sum", *ctx.args), None, None
 
 
 def all_gather(t: torch.Tensor, dim: int, mesh, dims) -> torch.Tensor:
@@ -202,6 +221,59 @@ def reduce_scatter(t: torch.Tensor, dim: int, mesh, dims) -> torch.Tensor:
     rank keeping its piece (the inverse layout of :func:`all_gather`);
     under autograd its backward is that all-gather.  No ``dims``: ``t``."""
     return _Scatter.apply(t, dim, mesh, tuple(dims)) if dims else t
+
+
+def all_to_all(t: torch.Tensor, split_dim: int, cat_dim: int, mesh,
+               dim) -> torch.Tensor:
+    """``t`` cut into n even pieces along ``split_dim``, piece i sent to
+    rank i of mesh dim ``dim`` (n ranks), the pieces received joined
+    along ``cat_dim`` in rank order: a shard of ``cat_dim`` becomes a
+    shard of ``split_dim``.  Under autograd its backward is the inverse
+    all-to-all.  ``dim`` None, or of size 1: ``t``."""
+    if dim is None or mesh.size(dim) == 1:
+        return t
+    return _AllToAll.apply(t, split_dim, cat_dim, mesh, dim)
+
+
+def _a2a(t, split_dim, cat_dim, mesh, dim):
+    import torch.distributed._functional_collectives as funcol
+
+    n = mesh.size(dim)
+    if t.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does not "
+                         f"split in {n} even pieces")
+    pieces = t.unflatten(split_dim, (n, -1)).movedim(split_dim, 0)
+    out = _waited(funcol.all_to_all_single(pieces.contiguous(), None, None,
+                                           mesh.get_group(dim)))
+    return torch.cat(out.unbind(0), dim=cat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, split_dim, cat_dim, mesh, dim):
+        ctx.args = (cat_dim, split_dim, mesh, dim)
+        return _a2a(t, split_dim, cat_dim, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_a2a(g, *ctx.args),) + (None,) * 4
+
+
+def move_shard(x, mesh_dim: int, src: int, dst: int):
+    """The DTensor ``x``, split along tensor dim ``src`` over mesh dim
+    ``mesh_dim``, split along ``dst`` there instead, by an explicit
+    :func:`all_to_all` in a region (DTensor's own redistribution picks
+    its collective by device type: an all-gather on CPU meshes); its
+    other mesh dims as they are (a partial one reduced)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    pl = [Replicate() if q.is_partial() else q for q in x.placements]
+    in_pl = tuple(Shard(src) if i == mesh_dim else q for i, q in enumerate(pl))
+    out_pl = tuple(Shard(dst) if i == mesh_dim else q
+                   for i, q in enumerate(pl))
+    return local_region(lambda t: all_to_all(t, dst, src, mesh, mesh_dim),
+                        (x,), (in_pl,), (out_pl,), mesh)
 
 
 def _gather(t, dim, mesh, dims):
@@ -380,10 +452,34 @@ def dense(w, x):
     if is_dtensor(x) and x.ndim > 2:
         # both sides pinned: the matmul's gradients reach the ops around
         # it (views that cannot split a gradient sharded otherwise) as
-        # their forward values were placed
+        # their forward values were placed, and a partial sum (a
+        # row-parallel product) is reduced here, once, as Megatron's
+        # row-parallel layer does, not wherever DTensor meets it next
         x = _GradPlaced.apply(_one_leading_shard(x))
-        return _GradPlaced.apply(x @ w.to(x.dtype))
+        return _Reduced.apply(x @ w.to(x.dtype))
     return x @ w.to(x.dtype)
+
+
+class _Reduced(torch.autograd.Function):
+    """A DTensor with its partial sums reduced (replicated there), its
+    gradient passed back in the reduced placements: reduced only if it
+    arrives partial (DTensor's own backward of the reduction may hand
+    one on partial, to be reduced again further down)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh = y.device_mesh
+        ctx.placements = [Replicate() if q.is_partial() else q
+                          for q in y.placements]
+        if ctx.placements == list(y.placements):
+            return y.view_as(y)
+        return y.redistribute(ctx.mesh, ctx.placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
 
 
 class _GradPlaced(torch.autograd.Function):

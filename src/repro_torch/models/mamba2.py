@@ -31,9 +31,9 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from .layers import (
-    _head_placements, all_gather, constrain_acts, dense, dense_init,
-    is_dtensor, local_region, model_dim, randn, rmsnorm, rmsnorm_init,
-    split_heads,
+    _head_placements, all_gather, all_reduce, constrain_acts, dense,
+    dense_init, is_dtensor, local_region, model_dim, move_shard, randn,
+    rmsnorm, rmsnorm_init, split_heads,
 )
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_init_state", "mamba_decode_step"]
@@ -148,6 +148,19 @@ def _column_blocks(w, widths):
     return out
 
 
+def _whole_columns(w, x):
+    """``x @ w`` on DTensors as one region whose output keeps all of its
+    columns on every rank of "model" (the batch rows on their data
+    shards, ``w`` gathered): for a block too narrow to split over
+    "model", whose product DTensor may otherwise split there unevenly."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    x_pl, _, _, _ = _head_placements(mesh, x.shape[0], 1, 1)
+    return local_region(lambda a, b: a @ b.to(a.dtype), (x, w),
+                        (x_pl, (Replicate(),) * mesh.ndim), (x_pl,), mesh)
+
+
 def _sharded_mixer_in(p, cfg: ArchConfig, x):
     """The in-projection and causal conv of :func:`mamba_apply` on a
     DTensor ``x`` with a "model" dim: one projection per part (z, the
@@ -160,7 +173,9 @@ def _sharded_mixer_in(p, cfg: ArchConfig, x):
 
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     wz, wx, wbc, wdt = _column_blocks(p["in_proj"], (di, di, 2 * N, H))
-    z, xs_raw, bc_raw, dt = (dense(w, x) for w in (wz, wx, wbc, wdt))
+    z, xs_raw, bc_raw = (dense(w, x) for w in (wz, wx, wbc))
+    n_t = x.device_mesh.size(model_dim(x.device_mesh))
+    dt = dense(wdt, x) if H % n_t == 0 else _whole_columns(wdt, x)
     cw = _column_blocks(p["conv_w"], (di, 2 * N))
     cb = _column_blocks(p["conv_b"], (di, 2 * N))
     xs = _causal_conv({"conv_w": cw[0], "conv_b": cb[0]}, xs_raw,
@@ -176,8 +191,11 @@ def _sharded_mixer_in(p, cfg: ArchConfig, x):
         # heads that do not divide "model": the scan splits the sequence
         # (:func:`_seq_ssd`), so the SSM input leaves its channel split
         # for a sequence split (an all-to-all), not for a gather
-        xs = xs.redistribute(mesh, [Shard(1) if i == t else q
-                                    for i, q in enumerate(xs.placements)])
+        if xs.placements[t].is_shard(2):
+            xs = move_shard(xs, t, 2, 1)
+        else:
+            xs = xs.redistribute(mesh, [Shard(1) if i == t else q
+                                        for i, q in enumerate(xs.placements)])
         xs = xs.reshape(B, S, H, cfg.ssm_head_dim)
     else:
         xs = split_heads(xs, H)
@@ -268,14 +286,45 @@ def _sharded_ssd(x, dt, A, Bm, Cm, chunk: int, init_state=None):
 
 def _model_like(y, z):
     """``y`` redistributed over "model" as ``z`` is split there (other
-    mesh dims as they are), where ``z`` is split there."""
+    mesh dims as they are), where ``z`` is split there: a sequence split
+    moved to the channels by an explicit all-to-all."""
     mesh = y.device_mesh
     t = model_dim(mesh)
     q = None if t is None else z.placements[t]
     if q is None or not q.is_shard() or y.placements[t] == q:
         return y
+    if y.placements[t].is_shard():
+        return move_shard(y, t, y.placements[t].dim, q.dim)
     return y.redistribute(mesh, [q if i == t else p_
                                  for i, p_ in enumerate(y.placements)])
+
+
+def _sharded_gated_norm(g, y, z):
+    """``rmsnorm(g, y · silu(z))`` on DTensors as one region: batch rows
+    over the data axes, channels over "model" where ``z`` splits them
+    there, each rank's sum of squares summed over "model".  Left to
+    DTensor, its backward may move the channel split to the batch (a
+    redistribution whose collective DTensor picks)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = y.device_mesh
+    x_pl, _, t, _ = _head_placements(mesh, y.shape[0], 1, 1)
+    x_pl, g_pl = list(x_pl), [Replicate()] * mesh.ndim
+    dims = []
+    if t is not None and z.placements[t].is_shard(2):
+        x_pl[t], g_pl[t], dims = Shard(2), Shard(0), [t]
+    di = y.shape[-1]
+
+    def local(yl, zl, gl, eps=1e-6):
+        v = yl * F.silu(zl)
+        if not dims:
+            return rmsnorm(gl, v, eps)
+        ss = all_reduce(v.float().square().sum(dim=-1, keepdim=True), "sum",
+                        mesh, dims)
+        return (v * torch.rsqrt(ss / di + eps).to(v.dtype)) * gl.to(v.dtype)
+
+    return local_region(local, (y, z, g), (tuple(x_pl),) * 2 + (tuple(g_pl),),
+                        (tuple(x_pl),), mesh)
 
 
 def _seq_split(x, mesh, t) -> bool:
@@ -351,7 +400,9 @@ def mamba_apply(
     y = y.reshape(B, S, di)
     if is_dtensor(y):
         y = _model_like(y, z)          # a sequence split back to channels
-    y = rmsnorm(p["gn"], y * F.silu(z))
+        y = _sharded_gated_norm(p["gn"], y, z)
+    else:
+        y = rmsnorm(p["gn"], y * F.silu(z))
     out = constrain_acts(res + dense(p["out_proj"], y))
     if return_state:
         # conv history for decode continuity: last (w-1) raw conv inputs

@@ -19,10 +19,14 @@ activations the layer always runs as such a region
 holds (by default under the whole batch's capacity, its queue offsets
 taken from the other data shards' counts), runs the expert GEMMs on its
 slice of the experts (EP) or of ``d_ff`` (TP), and the partial outputs
-are summed over "model".
+are summed over "model".  The weights are gathered over "data" (their
+FSDP split) at use, unless the block has fewer tokens than a rank's
+share of them (a decode step): then the tokens go to the weights, every
+rank computing on its slice of ``D`` (:func:`_to_weights_local`).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,8 +34,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from .layers import (
-    all_gather, dense_init, is_dtensor, local_region, randn, reduce_scatter,
-    shard_index,
+    all_gather, all_reduce, all_to_all, dense_init, is_dtensor, local_region,
+    randn, reduce_scatter, shard_index, shard_offset,
 )
 
 __all__ = ["moe_init", "moe_apply", "moe_capacity", "set_moe_block_dispatch",
@@ -82,7 +86,7 @@ def moe_capacity(cfg: ArchConfig, T: int) -> int:
 
 
 def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None,
-                    shard=None):
+                    shard=None, cols=None):
     """Token-choice top-k dispatch + expert GEMMs for one token block.
 
     xt: (Tb, D) -> (y: (Tb, D), aux: scalar).  ``experts=(e0, n)``: the
@@ -94,7 +98,11 @@ def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None,
     positions are offset by the earlier pieces' counts (an all-gather of
     E counts), and each rank runs the expert GEMMs on its share of the
     capacity slots (:func:`_expert_rows`); the aux loss is this piece's
-    share of the whole block's.
+    share of the whole block's.  ``cols=(d0, mesh, dims)``: the expert
+    weights in ``p`` hold rows ``d0 ..`` of their ``D`` side only, the
+    rest on the other ranks of the mesh ``dims`` (FSDP): the GEMMs run
+    on those columns of the tokens, the partial sums of the first two
+    reduced over ``dims``, and ``y`` holds those columns, (Tb, D_local).
     """
     E, K = cfg.n_experts, cfg.top_k
     Tb, D = xt.shape
@@ -139,20 +147,30 @@ def _dispatch_block(xt, p, cfg: ArchConfig, cap: int, experts=None,
         eflat = torch.where(local, eflat - e0, torch.zeros_like(eflat))
     flat = eflat * slots + slot
     gate = gate_w.reshape(-1) * wmask                        # (Tb*K,)
+    red = ()
+    if cols is not None:
+        d0, cmesh, red = cols
+        xt = xt[:, d0:d0 + p["w_gate"].shape[1]]
+        mesh = cmesh
     return _expert_rows(xt, p, flat, wmask, gate, n_exp, slots, K, mesh,
-                        dims), aux
+                        dims, red), aux
 
 
-def _expert_ffn(p, buf):
+def _expert_ffn(p, buf, mesh=None, red=()):
     """The grouped expert GEMMs (weights cast to the activation dtype at
-    use): (n, rows, D) -> (n, rows, D)."""
+    use): (n, rows, D) -> (n, rows, D).  ``red``: the mesh dims whose
+    ranks hold the other rows of the weights' ``D`` side (and of
+    ``buf``'s columns), over which the first two GEMMs' partial sums are
+    reduced."""
     g = torch.bmm(buf, p["w_gate"].to(buf.dtype))
     u = torch.bmm(buf, p["w_up"].to(buf.dtype))
+    if red:
+        g, u = all_reduce(torch.stack([g, u]), "sum", mesh, red).unbind(0)
     return torch.bmm(F.silu(g) * u, p["w_down"].to(buf.dtype))
 
 
 def _expert_rows(xt, p, flat, wmask, gate, n_exp: int, slots: int, K: int,
-                 mesh, dims):
+                 mesh, dims, red=()):
     """Dispatch, expert GEMMs and combine of the (Tb·K,) assignments at
     rows ``flat`` of an (n_exp, slots, D) expert buffer (kept where
     ``wmask``, weighted by ``gate``) -> y (Tb, D).  Over the mesh
@@ -162,7 +180,8 @@ def _expert_rows(xt, p, flat, wmask, gate, n_exp: int, slots: int, K: int,
     along its slots (its outputs all-gathered back), or the block's
     tokens, all-gathered with the assignments' rows and gates (its
     outputs summed into the block's tokens and reduce-scattered back).
-    No ``dims``: the plain layer's buffer."""
+    No ``dims``: the plain layer's buffer.  ``red``: see
+    :func:`_expert_ffn` (no ``dims`` then)."""
     Tb, D = xt.shape
     k, n = shard_index(mesh, dims)
     if not dims or n * Tb >= n_exp * slots:
@@ -170,7 +189,7 @@ def _expert_rows(xt, p, flat, wmask, gate, n_exp: int, slots: int, K: int,
             xt.dtype)
         buf = xt.new_zeros((n_exp * slots, D)).index_add(0, flat, contrib)
         out = _expert_ffn(p, reduce_scatter(buf.view(n_exp, slots, D), 1,
-                                            mesh, dims))
+                                            mesh, dims), mesh, red)
         y = all_gather(out, 1, mesh, dims).reshape(-1, D)[flat]
         return (y * gate[:, None].to(xt.dtype)).reshape(Tb, K, D).sum(dim=1)
 
@@ -269,6 +288,27 @@ def _moe_region(p, cfg: ArchConfig, x, mesh, dp, tp: str, cap: int,
     for i, key in ((0, "w_in"), (1, "w_in"), (2, "w_out")):
         if _MOE_BLOCKS[key] is not None:
             ws[i] = ws[i].redistribute(*_MOE_BLOCKS[key])
+    f = _fsdp_dim(ws, mesh)
+    f_local = Fd // n_tp if split and not ep else Fd
+    if (f is not None and (dp is None or (whole and f == dp_dims[-1]))
+            and B * S < 3 * n_local * f_local):
+        # fewer tokens than the rank's share of the gathered weights (a
+        # decode step): the tokens go to the weights, which keep their
+        # FSDP split of D over mesh dim f
+        w_in, w_out = (tuple(Shard(d) if i == f else q
+                             for i, q in enumerate(pl))
+                       for pl, d in ((w_in, 1), (w_out, 2)))
+        split_dims = ((set(dp_dims) if whole else set()) | {f}
+                      | ({t} if split else set()))
+        aux_pl = tuple(Partial() if i in split_dims else Replicate()
+                       for i in range(nd))
+        local = functools.partial(
+            _to_weights_local, cfg=cfg, cap=cap, mesh=mesh, f=f,
+            t=t if ep else None, n_local=n_local,
+            dp_dims=dp_dims if whole else [],
+            n_aux=math.prod(mesh.size(i) for i in split_dims))
+        if not whole:
+            y_pl[f] = Partial()
     y, aux = local_region(
         local, (x, *(w.to(wdtype) for w in [p["router"]] + ws)),
         (tuple(x_pl), tuple(rep), w_in, w_in, w_out),
@@ -276,6 +316,42 @@ def _moe_region(p, cfg: ArchConfig, x, mesh, dp, tp: str, cap: int,
     return (y.redistribute(mesh, [Replicate() if q.is_partial() else q
                                   for q in y_pl]),
             aux.redistribute(mesh, rep))
+
+
+def _fsdp_dim(ws, mesh):
+    """The one mesh dim of size > 1 that splits the ``D`` side of all
+    three expert weights (dim 1 of w_gate/w_up, dim 2 of w_down: FSDP),
+    or None."""
+    dims = [{i for i, q in enumerate(w.placements)
+             if q.is_shard(d) and mesh.size(i) > 1}
+            for w, d in zip(ws, (1, 1, 2))]
+    both = dims[0] & dims[1] & dims[2]
+    return next(iter(both)) if len(both) == 1 else None
+
+
+def _to_weights_local(xl, router, wg, wu, wd, *, cfg, cap, mesh, f, t,
+                      n_local, dp_dims, n_aux):
+    """One rank of the MoE layer where the tokens go to the weights: the
+    block's tokens all-gathered over ``dp_dims`` (none: every rank holds
+    them all) and routed as the plain layer routes them, the expert
+    GEMMs run on this rank's slice of ``D`` (the weights' FSDP split over
+    mesh dim ``f``), their partial sums reduced over ``f``.  The outputs'
+    columns go back to their rows by an all-to-all over ``f`` (tokens
+    split over ``dp_dims``), else each rank's columns are a partial sum
+    over ``f``; EP's experts over mesh dim ``t``."""
+    Bl, Sl, D = xl.shape
+    xg = all_gather(xl.reshape(Bl * Sl, D), 0, mesh, dp_dims)
+    experts = None if t is None else (mesh.get_local_rank(t) * n_local,
+                                      n_local)
+    d0 = shard_offset(D, mesh, [f])
+    pl = {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd}
+    y, aux = _dispatch_block(xg, pl, cfg, cap, experts, cols=(d0, mesh, [f]))
+    if dp_dims:
+        k, n = shard_index(mesh, [i for i in dp_dims if i != f])
+        y = all_to_all(y.view(n, -1, y.shape[-1])[k], 0, 1, mesh, f)
+    else:
+        y = F.pad(y, (d0, D - d0 - y.shape[-1]))
+    return y.reshape(Bl, Sl, D), aux / n_aux
 
 
 def _moe_shard_map_apply(p, cfg: ArchConfig, x):

@@ -30,7 +30,8 @@ from .layers import (
     _GradPlaced, _head_placements, chunked_attention, constrain_acts,
     decode_attention, dense, dense_init, embed_init, gelu_mlp, gelu_mlp_init,
     is_dtensor, kv_groups, layernorm, layernorm_init, length_dims,
-    local_region, remat_call, rmsnorm, rmsnorm_init, rope, shard_index,
+    local_region, move_shard, remat_call, rmsnorm, rmsnorm_init, rope,
+    shard_index,
     split_kv_attend, swiglu, swiglu_init,
 )
 
@@ -288,6 +289,8 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
         # the heads do not split over "model": its ranks split the query
         # rows instead, each with the whole kv (gathered once a layer)
         q_pl = tuple(Shard(1) if i == t else p_ for i, p_ in enumerate(kv_pl))
+        if q.placements[t].is_shard(2):
+            q = move_shard(q, t, 2, 1)
 
     def local(ql, kl, vl, nq, nk, pos, *cl):
         groups = None
@@ -311,8 +314,7 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
                        (q_pl,) + ((kv_pl, kv_pl, rep) if leaves else ()), mesh)
     o = out[0]
     if seq and o.shape[-1] % n_t == 0:
-        o = o.redistribute(mesh, [Shard(2) if i == t else p_
-                                  for i, p_ in enumerate(o.placements)])
+        o = move_shard(o, t, 1, 2)
     if not leaves:
         return o, None
     nc = {key: x.redistribute(mesh, pl)

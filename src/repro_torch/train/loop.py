@@ -109,6 +109,14 @@ def _microbatch(v, i: int, M: int):
                               v.placements, run_check=False)
 
 
+def _placed_like(g, p):
+    """``g`` redistributed to ``p``'s placements where it is a DTensor
+    placed otherwise."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 class Trainer:
     def __init__(self, model, optimizer: AdamW, tc: TrainConfig,
                  donate: bool = True, device=None):
@@ -121,14 +129,19 @@ class Trainer:
         self.straggler_events: list = []
 
     def value_and_grad(self, params, batch):
-        """(loss, grads tree) of ``model.loss`` at ``params``."""
+        """(loss, grads tree) of ``model.loss`` at ``params``; on DTensor
+        params each grad comes back in its param's placements (a partial
+        sum reduce-scattered or reduced, as the reference's grads come
+        out placed as its params), not where its last op left it, for
+        the optimizer to meet in DTensor's choice of redistribution."""
         with torch.enable_grad(), sharded_scope(params, batch):
             live = tree_map(lambda p: p.detach().requires_grad_(), params)
             leaves = []
             tree_map(leaves.append, live)
             loss = self.model.loss(live, batch)
             grads = iter(torch.autograd.grad(loss, leaves))
-        return loss.detach(), tree_map(lambda _: next(grads), live)
+            grads = tree_map(lambda p: _placed_like(next(grads), p), live)
+        return loss.detach(), grads
 
     def grads(self, params, batch):
         """(loss, grads) that one step applies, before compression: with
