@@ -287,6 +287,13 @@ LM_MODELS = (("qwen3-0.6b", None), ("mamba2-130m", None),
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_SEED = 20251017
 LM_PREFILL_TOL, LM_DECODE_TOL = 1e-3, 5e-2   # tests/test_models.py:61, :73
+# one decode step's rise in allocated memory over what it held before
+# (the caller's cache included): at most this many caches' bytes plus the
+# margin (the logits and one layer's transients) plus the largest bf16
+# copy of one weight the step makes (``dense`` and the experts cast the
+# fp32 master weights per call: the tied head's table, one layer's
+# expert stack); two new caches (a list beside its stack) cross it
+LM_STEP_CACHES, LM_STEP_MARGIN = 1.2, 64e6
 # the lm_train phase: 4 x 2048 tokens a step; the microbatch gate's bounds
 # on the params after the step (tests/test_train_loop.py:44) and on the
 # grads it applies, per leaf over the leaf's max (the bf16 tolerance of
@@ -1543,6 +1550,33 @@ def lm_decode_gate(model, params, tokens: torch.Tensor) -> tuple:
     return e_pre, e_dec
 
 
+def weight_cast_bytes(params) -> int:
+    """The largest bf16 copy of one weight a step makes: one layer's
+    slice of a stacked leaf (3-D and up), or a whole matrix."""
+    return max(2 * (w.numel() // w.shape[0] if w.ndim >= 3 else w.numel())
+               for w in _leaves(params))
+
+
+def decode_step_memory(one_step, state, params) -> dict:
+    """One decode step's rise in ``max_memory_allocated`` over the memory
+    allocated before it, beside the cache's bytes and the gate; the peak
+    so far is kept (the rise resets the peak statistics)."""
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    cache = sum(t.numel() * t.element_size() for t in _leaves(state["cache"]))
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one_step()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    cast = weight_cast_bytes(params)
+    return dict(peak_before_step=peak, cache_bytes=cache,
+                decode_step_rise_bytes=rise, weight_cast_bytes=cast,
+                decode_step_rise_over_cache=rise / cache,
+                decode_step_rise_gate_bytes=int(
+                    LM_STEP_CACHES * cache + LM_STEP_MARGIN + cast))
+
+
 def lm_serve_one(arch: str, n_layers) -> dict:
     cfg = get_config(arch)
     if n_layers is not None:
@@ -1604,6 +1638,10 @@ def lm_serve_one(arch: str, n_layers) -> dict:
         state["pos"] += 1
 
     rec["decode_ms_per_step"] = cuda_ms(one_step, 8)
+    rec.update(decode_step_memory(one_step, state, params))
+    check(rec["decode_step_rise_bytes"] <= rec["decode_step_rise_gate_bytes"],
+          arch, "one decode step's memory rise", rec["decode_step_rise_bytes"],
+          rec["decode_step_rise_gate_bytes"])
     busy = device_kernel_ms(one_step, host=True)["busy_ms"]
     rec["decode_device_busy_ms"] = busy
     rec["decode_device_busy_share"] = (
@@ -1626,7 +1664,8 @@ def lm_serve_one(arch: str, n_layers) -> dict:
     rec["decode_weight_bound_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
     rec["decode_over_bound"] = (rec["decode_ms_per_step"]
                                 / rec["decode_weight_bound_ms"])
-    rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["max_memory_allocated_gb"] = max(
+        rec.pop("peak_before_step"), torch.cuda.max_memory_allocated()) / 1e9
     del params, leaves, toks
     torch.cuda.empty_cache()
     return rec
@@ -1658,7 +1697,13 @@ def phase_lm_serve() -> None:
                 f"the profiler); "
                 f"greedy_generate {r['generate_s']:.2f} s, "
                 f"{r['tokens_per_s']:.1f} tokens/s; device memory peak "
-                f"{r['max_memory_allocated_gb']:.2f} GB; prefill vs forward "
+                f"{r['max_memory_allocated_gb']:.2f} GB; one decode step "
+                f"raised it {r['decode_step_rise_bytes'] / 1e6:.1f} MB "
+                f"({r['decode_step_rise_over_cache']:.3f}x the "
+                f"{r['cache_bytes'] / 1e6:.1f} MB cache; largest weight "
+                f"cast {r['weight_cast_bytes'] / 1e6:.1f} MB; gate "
+                f"{r['decode_step_rise_gate_bytes'] / 1e6:.1f} MB); "
+                f"prefill vs forward "
                 f"{r['prefill_vs_forward_abs']:.3e} abs, decode vs forward "
                 f"{r['decode_vs_forward_rel']:.3e} rel{gate}")
         launched = counts()

@@ -42,7 +42,10 @@ The mode also tracks the bytes alive on the device: every storage an
 op of the run allocates (a result that aliases no input) counts until
 it is freed (a weak reference on the storage), and :attr:`CostMode.peak_bytes` is
 the most alive at once — what a caching allocator would have to hold,
-beyond the tensors that existed before the run.
+beyond the tensors that existed before the run.  An op whose kernel
+returns its input's storage while its fake (meta) version allocates a
+new one (:data:`_RETURNS_INPUT`: a collective's ``wait_tensor``) shares
+its input's entry, freed when the last of the two storages is gone.
 """
 from __future__ import annotations
 
@@ -82,6 +85,12 @@ _REDUCTIONS = {
 # results that are not written: no bytes
 _NO_WRITE = {"empty", "empty_like", "empty_strided", "new_empty",
              "new_empty_strided", "lift_fresh", "wait_tensor"}
+
+# ops whose kernel returns their (first) input's storage, while their
+# meta kernel, run on fake tensors, allocates another: the result is
+# the input's bytes, not new ones.  Every other ``_c10d_functional`` op
+# of the models' paths makes a new storage on real tensors too.
+_RETURNS_INPUT = {("_c10d_functional", "wait_tensor")}
 
 
 @dataclasses.dataclass
@@ -153,7 +162,9 @@ class CostMode(TorchDispatchMode):
         self.fake_mode = fake_mode
         self.live_bytes = 0
         self.peak_bytes = 0
-        self._live: Dict[int, int] = {}
+        # storage key -> [bytes, storages alive]; storages that are one
+        # on the device (a waited result and its input) share one entry
+        self._live: Dict[int, list] = {}
         self._shadow: set = set()   # ids of DTensor's global-shape stand-ins
         # (kind, result shape, dtype) -> count, of every collective
         self.collective_shapes: Dict[tuple, int] = {}
@@ -178,7 +189,10 @@ class CostMode(TorchDispatchMode):
                 weakref.finalize(t, self._shadow.discard, id(t))
         elif self._ours(outs):
             self._count(func, args, outs)
-            if not any(r.alias_info is not None for r in func._schema.returns):
+            if (func.namespace, func.overloadpacket.__name__) in _RETURNS_INPUT:
+                self._share(ins[0], outs)
+            elif not any(r.alias_info is not None
+                         for r in func._schema.returns):
                 self._track(outs)   # not a view, nor written in place
         return out
 
@@ -189,18 +203,34 @@ class CostMode(TorchDispatchMode):
                    for t in outs)
 
     def _free(self, key: int) -> None:
-        self.live_bytes -= self._live.pop(key, 0)
+        entry = self._live.pop(key, None)
+        if entry is not None:
+            entry[1] -= 1
+            if entry[1] == 0:
+                self.live_bytes -= entry[0]
+
+    def _add(self, st, entry: list) -> None:
+        self._live[st._cdata] = entry
+        entry[1] += 1
+        weakref.finalize(st, self._free, st._cdata)
 
     def _track(self, outs) -> None:
         for t in outs:
             st = t.untyped_storage()
-            key = st._cdata
-            if key in self._live:
+            if st._cdata in self._live:
                 continue
-            self._live[key] = st.nbytes()
+            self._add(st, [st.nbytes(), 0])
             self.live_bytes += st.nbytes()
-            weakref.finalize(st, self._free, key)
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def _share(self, src, outs) -> None:
+        """``outs`` are ``src``'s storage on the device: one entry for
+        both (none where ``src`` is not the run's)."""
+        entry = self._live.get(src.untyped_storage()._cdata)
+        for t in outs:
+            st = t.untyped_storage()
+            if entry is not None and st._cdata not in self._live:
+                self._add(st, entry)
 
     def _count(self, func, args, outs) -> None:
         self.ops += 1

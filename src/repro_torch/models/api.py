@@ -45,9 +45,9 @@ from .layers import (
 from .mamba2 import mamba_apply, mamba_decode_step, mamba_init, mamba_init_state
 from .moe import moe_apply, moe_init
 from .transformer import (
-    attn_apply, attn_init, block_apply, block_init, mlp_apply, mlp_init,
+    attn_apply, attn_init, block_apply, block_init, mlp_fn, mlp_init,
     norm_apply, norm_init, stack_init, scan_layers, tree_index, tree_map,
-    tree_stack, tree_unbind,
+    tree_stack, tree_unbind, CacheStack,
     kv_cache_init, positions_at,
     dense_params_init, dense_forward, dense_init_cache, dense_prefill,
     dense_decode_step,
@@ -253,17 +253,19 @@ def _build_moe(cfg: ArchConfig) -> Model:
 
     def _run(p, x, positions, cache=None):
         aux = 0.0
-        new = []
+        new = None if cache is None else CacheStack(n_super)
         supers = tree_unbind(p["supers"], n_super)
         caches = [None] * n_super if cache is None else tree_unbind(cache, n_super)
-        for sp, sc in zip(supers, caches):
+        for i, (sp, sc) in enumerate(zip(supers, caches)):
             x, a, nc = remat_call(
                 lambda x, sp, sc: _moe_super_apply(sp, cfg, x, positions, sc),
                 x, sp, sc)
             aux = aux + a
-            new.append(nc)
+            if new is not None:
+                new.put(i, nc)
+            del nc
         x = norm_apply(cfg, p["ln_f"], x)
-        return x, aux, (None if cache is None else tree_stack(new))
+        return x, aux, (None if new is None else new.value())
 
     def forward(p, batch):
         x = _embed_tokens(p, batch["tokens"])
@@ -443,7 +445,7 @@ def _cross_block_apply(p, cfg, x, kv_x=None, kv_cache=None):
     o = chunked_attention(q, k, v, causal=False)
     y = dense(p["attn"]["wo"], o.reshape(B, S, cfg.n_heads * hd))
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * y
-    y = mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x))
+    y = mlp_fn(cfg)(p["mlp"], norm_apply(cfg, p["ln2"], x))
     x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * y
     return x, {"k": k, "v": v}
 
@@ -571,7 +573,7 @@ def _build_encdec(cfg: ArchConfig) -> Model:
             x2, _ = attn_apply(bp["cross"], cfg, norm_apply(cfg, bp["ln_x"], x),
                                kv_x=mem, causal=False, use_rope=False)
         x = x + x2
-        x = x + mlp_apply(cfg, bp["mlp"], norm_apply(cfg, bp["ln2"], x))
+        x = x + mlp_fn(cfg)(bp["mlp"], norm_apply(cfg, bp["ln2"], x))
         return x, sc
 
     def _embed_dec(p, tokens):
@@ -603,11 +605,13 @@ def _build_encdec(cfg: ArchConfig) -> Model:
     def prefill(p, batch, cache):
         mem = encode(p, batch["frames"])
         # precompute per-layer cross KV once (decode reuses it)
-        cross = tree_stack([
-            {"k": split_heads(dense(ap["wk"], mem), cfg.n_kv_heads),
-             "v": split_heads(dense(ap["wv"], mem), cfg.n_kv_heads)}
-            for ap in (tree_index(p["dec"]["cross"], i)
-                       for i in range(cfg.n_layers))])
+        stack = CacheStack(cfg.n_layers)
+        for i in range(cfg.n_layers):
+            ap = tree_index(p["dec"]["cross"], i)
+            stack.put(i, {
+                "k": split_heads(dense(ap["wk"], mem), cfg.n_kv_heads),
+                "v": split_heads(dense(ap["wv"], mem), cfg.n_kv_heads)})
+        cross = stack.value()
         x = _embed_dec(p, batch["tokens"])
         x, sc = _run_cached(p, x, _arange(x), cache["self"], cross)
         x = norm_apply(cfg, p["ln_f"], x[:, -1:])

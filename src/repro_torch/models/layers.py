@@ -198,6 +198,14 @@ def _reduce(t, op, mesh, dims):
     return t
 
 
+def _reduce_(t, op: str, mesh, d):
+    """``t``, written in place with its reduction by ``op`` over mesh dim
+    ``d``."""
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce_(t, op,
+                                           mesh.get_group(d).group_name))
+
+
 class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, dims):
@@ -468,14 +476,22 @@ class _Reduced(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y):
-        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor import DTensor, Replicate
 
         ctx.mesh = y.device_mesh
         ctx.placements = [Replicate() if q.is_partial() else q
                           for q in y.placements]
         if ctx.placements == list(y.placements):
             return y.view_as(y)
-        return y.redistribute(ctx.mesh, ctx.placements)
+        # reduced in place, as XLA reduces such a buffer: the partial
+        # product is not kept beside its reduction
+        t = y.to_local()
+        for d, q in enumerate(y.placements):
+            if q.is_partial():
+                t = _reduce_(t, q.reduce_op, ctx.mesh, d)
+        return DTensor.from_local(t, ctx.mesh, ctx.placements,
+                                  run_check=False, shape=y.shape,
+                                  stride=y.stride())
 
     @staticmethod
     def backward(ctx, g):
@@ -522,8 +538,46 @@ def rmsnorm_init(d: int, device=None):
     return torch.ones((d,), dtype=torch.float32, device=resolve_device(device))
 
 
+# the fp32 bytes of the rows a norm upcasts at once: over a long
+# sequence a norm holds this, not an fp32 copy of its whole input (XLA
+# fuses the upcast into the row reduction)
+_NORM_BLOCK_BYTES = 64 << 20
+
+
+def _by_row_blocks(fn, x, *params):
+    """``fn(x, *params)`` for a row-wise ``fn`` (each row of x's last dim
+    mapped on its own, with its own output row) over blocks of x's rows
+    whose fp32 copy takes at most :data:`_NORM_BLOCK_BYTES`, joined: the
+    same values, rows being independent.  A DTensor is cut along its
+    longest leading dim that no mesh dim splits, by DTensor ops, so its
+    placements and its gradients' are ``fn``'s own; a partial one, or
+    one with no such dim, goes to ``fn`` whole."""
+    D = max(x.shape[-1], 1)
+    rows = max(1, _NORM_BLOCK_BYTES // (4 * D))
+    if not is_dtensor(x):
+        n = x.numel() // D
+        if n <= rows:
+            return fn(x, *params)
+        out = [fn(b, *params) for b in x.reshape(n, D).split(rows)]
+        return torch.cat(out).reshape(*x.shape[:-1], -1)
+    split = {q.dim for q in x.placements if q.is_shard()}
+    free = [d for d in range(x.ndim - 1) if d not in split]
+    if not free or any(q.is_partial() for q in x.placements):
+        return fn(x, *params)
+    d = max(free, key=lambda i: x.shape[i])
+    per = x.to_local().numel() // D // max(x.shape[d], 1)  # local rows an index
+    k = max(1, rows // max(per, 1))
+    if k >= x.shape[d]:
+        return fn(x, *params)
+    return torch.cat([fn(b, *params) for b in x.split(k, dim=d)], dim=d)
+
+
+def _mean_square(x):
+    return x.float().square().mean(dim=-1, keepdim=True)
+
+
 def rmsnorm(g, x, eps: float = 1e-6):
-    var = x.float().square().mean(dim=-1, keepdim=True)
+    var = _by_row_blocks(_mean_square, x)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * g.to(x.dtype)
 
 
@@ -533,12 +587,17 @@ def layernorm_init(d: int, device=None):
             "b": torch.zeros((d,), dtype=torch.float32, device=dev)}
 
 
-def layernorm(p, x, eps: float = 1e-5):
+def _layernorm_rows(x, g, b, eps: float):
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, correction=0)   # jnp.var: population
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * p["g"] + p["b"]).to(x.dtype)
+    return (y * g + b).to(x.dtype)
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    return _by_row_blocks(lambda x, g, b: _layernorm_rows(x, g, b, eps), x,
+                         p["g"], p["b"])
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -783,8 +842,11 @@ def swiglu_init(gen, d: int, f: int, device=None):
 
 
 def swiglu(p, x):
+    # each input let go once read: a caller that hands over its only
+    # reference (``mlp_fn``) frees it before the down projection
     g = dense(p["w_gate"], x)
     u = dense(p["w_up"], x)
+    del x
     return dense(p["w_down"], F.silu(g) * u)
 
 
@@ -795,7 +857,9 @@ def gelu_mlp_init(gen, d: int, f: int, device=None):
 
 def gelu_mlp(p, x):
     # jax.nn.gelu defaults to the tanh approximation
-    return dense(p["w_out"], F.gelu(dense(p["w_in"], x), approximate="tanh"))
+    h = dense(p["w_in"], x)
+    del x
+    return dense(p["w_out"], F.gelu(h, approximate="tanh"))
 
 
 def embed_init(gen, vocab: int, d: int, device=None):

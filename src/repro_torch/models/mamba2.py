@@ -393,6 +393,7 @@ def mamba_apply(
         Bm = xBC[..., di: di + N]
         Cm = xBC[..., di + N:]
         raw = (xBC_raw,)
+    del x   # the norm output, read by the projections
     dt = _softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, hT = _ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)

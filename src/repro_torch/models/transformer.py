@@ -10,7 +10,10 @@ once (a ``t[i]`` per layer would write a zero tensor of the whole stack
 per layer).  Under autograd each layer body runs under
 ``torch.utils.checkpoint`` (``jax.checkpoint`` around the JAX scan
 body): the backward recomputes a layer instead of keeping its
-activations.  Caches keep the same stacked layout.
+activations.  Caches keep the same stacked layout; a scan writes each
+layer's new cache into one stacked tree as the layer returns it
+(:class:`CacheStack`), as ``lax.scan`` writes its stacked output, so it
+holds one new cache, not a list of them beside their stack.
 
 Caches are values, as in JAX: ``prefill`` and ``decode_step`` return a
 new cache and never write a tensor of the cache they were given, so a
@@ -41,7 +44,7 @@ __all__ = [
     "stack_init", "dense_params_init", "dense_forward", "dense_init_cache",
     "dense_decode_step", "dense_prefill", "kv_cache_init", "positions_at",
     "tree_map", "tree_leaves", "tree_index", "tree_unbind", "tree_stack",
-    "scan_layers", "embed_lookup",
+    "CacheStack", "scan_layers", "embed_lookup",
 ]
 
 
@@ -86,19 +89,76 @@ def _n_stacked(tree) -> int:
     return tree.shape[0]
 
 
+class _StackedLeaf:
+    """``n`` layers' tensors like ``t`` in one stacked tensor, allocated
+    once; :meth:`put` copies a layer's into its slice.  Where ``t`` is a
+    DTensor the stack keeps its placements (the stack dim whole): the
+    layers' local tensors are written into one local buffer."""
+
+    def __init__(self, t, n: int):
+        self.dt = None
+        if is_dtensor(t):
+            self.dt = (t.device_mesh, tuple(t.placements), (n, *t.shape))
+            t = t.to_local()
+        self.buf = t.new_empty((n, *t.shape))
+
+    def put(self, i: int, t) -> None:
+        if self.dt is not None:
+            mesh, pl, _ = self.dt
+            if tuple(t.placements) != pl:
+                t = t.redistribute(mesh, pl)
+            t = t.to_local()
+        self.buf[i].copy_(t)
+
+    def value(self):
+        if self.dt is None:
+            return self.buf
+        from torch.distributed.tensor import DTensor, Shard
+
+        mesh, pl, shape = self.dt
+        stride = [1] * len(shape)
+        for d in range(len(shape) - 2, -1, -1):
+            stride[d] = stride[d + 1] * max(shape[d + 1], 1)
+        return DTensor.from_local(
+            self.buf, mesh, [Shard(q.dim + 1) if q.is_shard() else q
+                             for q in pl],
+            run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+
+
+class CacheStack:
+    """The new caches of ``n`` layers as one stacked tree, each layer's
+    written into its slice as it comes (``torch.stack`` of a list would
+    hold every layer's beside the stack: two new caches at the end)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.leaves = None
+
+    def put(self, i: int, tree) -> None:
+        if self.leaves is None:
+            self.leaves = tree_map(lambda t: _StackedLeaf(t, self.n), tree)
+        tree_map(lambda s, t: s.put(i, t), self.leaves, tree)
+
+    def value(self):
+        return tree_map(lambda s: s.value(), self.leaves)
+
+
 def scan_layers(body, x, params, cache=None, remat: bool = True):
     """``x`` through ``body(x, layer_params, layer_cache)`` for every layer
     of the stacked ``params``; returns ``(x, stacked new caches)``, the
     second None when ``cache`` is None.  With ``remat``, each layer runs
-    under :func:`remat_call`."""
+    under :func:`remat_call`.  Each layer's new cache goes into a
+    :class:`CacheStack` at once; ``cache`` is never written."""
     n = _n_stacked(params)
     layers = tree_unbind(params, n)
     caches = [None] * n if cache is None else tree_unbind(cache, n)
-    new = []
-    for lp, lc in zip(layers, caches):
+    new = None if cache is None else CacheStack(n)
+    for i, (lp, lc) in enumerate(zip(layers, caches)):
         x, c = remat_call(body, x, lp, lc, remat=remat)
-        new.append(c)
-    return x, (None if cache is None else tree_stack(new))
+        if new is not None:
+            new.put(i, c)
+        del c
+    return x, (None if new is None else new.value())
 
 
 def positions_at(pos, device) -> torch.Tensor:
@@ -126,8 +186,14 @@ def mlp_init(gen, cfg: ArchConfig, device=None):
     return gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, device)
 
 
+def mlp_fn(cfg: ArchConfig):
+    """The MLP function of ``cfg``: ``mlp_fn(cfg)(p, x)`` hands ``x`` to
+    it alone, which lets it go once projected."""
+    return swiglu if cfg.mlp == "swiglu" else gelu_mlp
+
+
 def mlp_apply(cfg: ArchConfig, p, x):
-    return swiglu(p, x) if cfg.mlp == "swiglu" else gelu_mlp(p, x)
+    return mlp_fn(cfg)(p, x)
 
 
 def attn_init(gen, cfg: ArchConfig, device=None):
@@ -166,14 +232,16 @@ def attn_apply(
     """
     B, S, D = x.shape
     hd = cfg.d_head
-    src = x if kv_x is None else kv_x
+    self_kv = kv_x is None
+    src = x if self_kv else kv_x
     q = dense(p["wq"], x)
     k = dense(p["wk"], src)
     v = dense(p["wv"], src)
+    del x, src, kv_x   # read: a caller's norm output need not outlive them
     norms = (p["qnorm"], p["knorm"]) if cfg.qk_norm else None
     core = functools.partial(_attn_core, hd=hd, theta=cfg.rope_theta,
                              causal=causal, use_rope=use_rope, window=window,
-                             self_kv=kv_x is None)
+                             self_kv=self_kv)
     if is_dtensor(q) and cache is not None and S == 1 and length_dims(
             cache["k"]):
         o, new_cache = _split_kv_decode(core, cfg, q, k, v, norms, positions,
@@ -254,6 +322,8 @@ def _attn_core(q, k, v, norms, positions, cache, *, hd: int, theta: float,
                 idx = (positions[-nt:] % L).long()
                 ck = cache["k"].index_copy(1, idx, kt)
                 cv = cache["v"].index_copy(1, idx, vt)
+            elif nt == L:   # the tail is the whole cache
+                ck, cv = kt, vt
             else:
                 ck = cache["k"].clone()
                 cv = cache["v"].clone()
@@ -386,13 +456,16 @@ def block_init(gen, cfg: ArchConfig, device=None):
 
 def block_apply(p, cfg: ArchConfig, x, positions=None, cache=None,
                 causal=True, window=None, kv_x=None, use_rope=True):
+    # each norm output goes straight into the call that reads it, and
+    # the attention output goes once added: none outlives its readers
     h, new_cache = attn_apply(
         p["attn"], cfg, norm_apply(cfg, p["ln1"], x), kv_x=kv_x,
         positions=positions, causal=causal, cache=cache, window=window,
         use_rope=use_rope,
     )
     x = constrain_acts(x + h)
-    x = constrain_acts(x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["ln2"], x)))
+    del h
+    x = constrain_acts(x + mlp_fn(cfg)(p["mlp"], norm_apply(cfg, p["ln2"], x)))
     return x, new_cache
 
 

@@ -360,3 +360,35 @@ def _kept_assignments(p, cfg, x) -> int:
     cap = moe.moe_capacity(cfg, xt.shape[0])
     counts = torch.bincount(gate_i, minlength=cfg.n_experts)
     return int(torch.clamp(counts, max=cap).sum())
+
+
+def functional_storages(rank: int, world: int) -> dict:
+    """For each ``_c10d_functional`` op of the models' paths, run on the
+    group's real tensors: does its result share its input's storage?"""
+    import torch.distributed as dist
+
+    ops = torch.ops._c10d_functional
+    name = dist.group.WORLD.group_name
+    x = torch.arange(8, dtype=torch.float32)
+
+    def shares(out, inp) -> bool:
+        return out.untyped_storage()._cdata == inp.untyped_storage()._cdata
+
+    out = {}
+    for op, make in {
+        "all_reduce": lambda t: ops.all_reduce(t, "sum", name),
+        "all_gather_into_tensor": lambda t: ops.all_gather_into_tensor(
+            t, world, name),
+        "reduce_scatter_tensor": lambda t: ops.reduce_scatter_tensor(
+            t, "sum", world, name),
+        "all_to_all_single": lambda t: ops.all_to_all_single(
+            t, [8 // world] * world, [8 // world] * world, name),
+        "broadcast": lambda t: ops.broadcast(t, 0, name),
+        "all_reduce_": lambda t: ops.all_reduce_(t, "sum", name),
+    }.items():
+        t = x.clone()
+        r = make(t)
+        w = ops.wait_tensor(r)
+        out[op] = shares(r, t)
+        out.setdefault("wait_tensor", []).append(shares(w, r))
+    return out
