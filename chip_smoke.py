@@ -138,8 +138,10 @@ Phases, none of them caught — any failure exits non-zero:
    loss non-zero, every param leaf moved from the Trainer's initial
    weights (copied to the host); step ms and the device peak.  No kernel
    of ``repro_torch.kernels`` launches.
-15. lm_launch: the LM stack's launch layer, in two processes of their
-   own started together.  (a)-(c), one NCCL group of one rank, with
+15. lm_launch: the LM stack's launch layer, in three processes of its
+   own: (a)-(c) on the card, (b)'s dry run on the host beside them, and
+   (d) on the host from the run's start (its dry runs need no card; see
+   below).  (a)-(c), one NCCL group of one rank, with
    ``CUBLAS_WORKSPACE_CONFIG`` set and deterministic algorithms: (a)
    qwen3-0.6b at full width, 3 steps of 4 x 2048 tokens (``SyntheticLM``,
    AdamW with bf16 moments) with the plain ``Trainer``, then the same
@@ -153,8 +155,11 @@ Phases, none of them caught — any failure exits non-zero:
    temp) within 25 % of the measured ``max_memory_allocated``, with
    the hand count of ``dense_train_flops`` beside them.  (c) the state
    checkpointed with ``CheckpointManager``, restored and placed back by
-   ``reshard_restored``: every leaf bitwise.  (d) meanwhile, on the
-   host: qwen3-0.6b ``train_4k`` traced on the (16, 16) production mesh
+   ``reshard_restored``: every leaf bitwise.  (d) on the host, in a
+   process started with the run, which traces while the kernels build
+   and the card times them, is paused while a main path times its walls
+   on the host, and is read (phase lm_launch_trace) before phase
+   recovery: qwen3-0.6b ``train_4k`` traced on the (16, 16) production mesh
    of a fake group of 256 ranks: trace seconds, per-device FLOPs,
    bytes, memory, collectives and the roofline terms; then qwen3-0.6b
    ``decode_32k`` on the same mesh.  Gates: the train cell's temp within
@@ -167,11 +172,15 @@ Phases, none of them caught — any failure exits non-zero:
    all-gathers a tensor as large as a rank's logits over the whole
    vocab; and mixtral-8x7b ``decode_32k`` at full width on (16, 16),
    which gathers no expert weight and puts at most 0.76 GB on the wire
-   (1.25x the JAX package's record of it).  No kernel of
-   ``repro_torch.kernels`` launches.
+   (1.25x the JAX package's record of it); and at full width on (16,
+   16) mixtral-8x7b ``long_500k`` and mamba2-130m ``decode_32k``, which
+   gather no decode state (SSM, conv or KV cache) and no table's vocab
+   rows and put at most 1.25x the JAX package's wire bytes on the wire.
+   No kernel of ``repro_torch.kernels`` launches.
 
 Every phase records the host's RAM peak (``MemTotal - MemAvailable``,
-sampled every 0.2 s).  The line before the last is the card's name and
+sampled every 0.2 s, less the anonymous memory of (d)'s process, whose
+own peak is recorded with it).  The line before the last is the card's name and
 power limit; before it,
 a ``{"kernels": [...]}`` JSON line, and before that the launch shape of
 the kernels (threads and shared bytes per CTA, CTAs per SM from the
@@ -183,6 +192,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -191,6 +201,7 @@ import json
 import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -333,6 +344,18 @@ LM_LAUNCH_TIED = ("mamba2-130m", 250, (2, 4), 8, 64)
 LM_LAUNCH_MOE = ("mixtral-8x7b", "train_4k", (16, 16))
 LM_LAUNCH_MOE_DECODE = ("mixtral-8x7b", "decode_32k")
 LM_LAUNCH_MOE_WIRE_GB = 0.76
+# and two cells at full width on (16, 16) whose state the decode step
+# takes where the rules place it: mixtral-8x7b's long_500k (one
+# sequence: the cache split by length over "data", head_dim over
+# "model") and mamba2-130m's decode_32k (its SSM state's head_dim and
+# conv state's channels over "model"; its 50280-entry tied table, which
+# does not divide "model", split over "data").  Each traces, all-gathers
+# no state, no table's vocab rows and no cache-shaped slice, and puts at
+# most 1.25x the JAX package's wire bytes on the wire (its dry-run
+# records of them: 0.03988 and 0.03972 GB)
+LM_LAUNCH_STATE = {"long": ("mixtral-8x7b", "long_500k", 0.03988),
+                   "ssm_decode": ("mamba2-130m", "decode_32k", 0.03972)}
+LM_LAUNCH_STATE_WIRE = 1.25
 RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
 
@@ -342,12 +365,15 @@ def log(msg: str) -> None:
 
 class RamPeak(threading.Thread):
     """Samples the host's used RAM (``MemTotal - MemAvailable`` of
-    ``/proc/meminfo``, all processes) every 0.2 s; :meth:`take` returns
-    the peak in GB since the last take."""
+    ``/proc/meminfo``, all processes) every 0.2 s, less the anonymous
+    memory of ``child`` (a process working beside the phases, charged on
+    its own: ``child_peak``); :meth:`take` returns the peak in GB since
+    the last take."""
 
     def __init__(self):
         super().__init__(daemon=True)
-        self.peak = 0
+        self.peak = self.child_peak = 0
+        self.child = None
         self.lock = threading.Lock()
 
     @staticmethod
@@ -359,20 +385,49 @@ class RamPeak(threading.Thread):
                 info[key] = int(val.split()[0]) * 1024
         return info["MemTotal"] - info["MemAvailable"]
 
+    @staticmethod
+    def anon(pid: int) -> int:
+        """``RssAnon`` of process ``pid`` in bytes (``VmRSS`` where the
+        kernel reports no ``RssAnon``; 0 once it is gone)."""
+        fields = {}
+        try:
+            with open(f"/proc/{pid}/status") as f:
+                for line in f:
+                    key, _, val = line.partition(":")
+                    if key in ("RssAnon", "VmRSS"):
+                        fields[key] = int(val.split()[0]) * 1024
+        except (OSError, ValueError, IndexError):
+            pass
+        return fields.get("RssAnon", fields.get("VmRSS", 0))
+
+    def sample(self) -> None:
+        child = self.child
+        own = self.anon(child.pid) if child is not None else 0
+        used = self.used() - own
+        with self.lock:
+            self.peak = max(self.peak, used)
+            self.child_peak = max(self.child_peak, own)
+
     def run(self) -> None:
         while True:
-            used = self.used()
-            with self.lock:
-                self.peak = max(self.peak, used)
+            self.sample()
             time.sleep(0.2)
 
     def take(self) -> float:
+        self.sample()
         with self.lock:
-            peak, self.peak = max(self.peak, self.used()), 0
+            peak, self.peak = self.peak, 0
         return peak / 1e9
 
 
 RAM = RamPeak()
+TRACE = None      # (d) of phase lm_launch, tracing on the host: HostTrace
+
+
+def host_quiet():
+    """A context for a wall timed on the host: the (d) trace child
+    (:class:`HostTrace`), where it still runs, is paused inside it."""
+    return TRACE.paused() if TRACE is not None else contextlib.nullcontext()
 
 
 def phase(name: str):
@@ -795,10 +850,11 @@ def phase_main_path(key: str, name: str, size: int, n: int, impl: str,
         for cls in (DoubleBufferedExecutor, EagerExecutor):
             exe = cls(policy=policy)
             reset_counts()
-            t = time.perf_counter()
-            out, stats = exe.execute(plan, x)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
+            with host_quiet():
+                t = time.perf_counter()
+                out, stats = exe.execute(plan, x)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
             launched = counts()
             es = exe.exec_stats
             check(es.kernel_impl == impl, es.kernel_impl)
@@ -2040,18 +2096,20 @@ def _leaves_host(tree) -> list:
     return out
 
 
-def lm_launch_card(out_dir: str, smoke: bool = False) -> dict:
+def lm_launch_card(out_dir: str, smoke: bool = False,
+                   dry: bool = True) -> dict:
     """(a)-(c) of phase lm_launch, in a process of its own (one NCCL group
     per process), started with ``LM_RESUME_ENV`` under deterministic
     algorithms (the embedding's accumulating backward is otherwise
     atomic, and two runs of it differ in their last bits).  ``smoke``
-    takes qwen3's smoke config (the card tests)."""
+    takes qwen3's smoke config (the card tests); ``dry`` False leaves
+    (b) to the caller (:func:`lm_launch_dry`, :func:`check_dry_run`)."""
     import tempfile
 
     import torch.distributed as dist
 
     from repro_torch.configs import ShapeSpec
-    from repro_torch.launch.dryrun import clear_hooks, lower_cell, register_hooks
+    from repro_torch.launch.dryrun import clear_hooks, register_hooks
     from repro_torch.launch.elastic import gather_full, replan, reshard_restored
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.op_analysis import CostMode
@@ -2151,25 +2209,10 @@ def lm_launch_card(out_dir: str, smoke: bool = False) -> dict:
               "lm_launch: DTensor steps not bitwise to the plain Trainer",
               differ, losses, plain_losses)
 
-        # (b) the dry run of the same cell, on fake CUDA tensors
-        t0 = time.perf_counter()
-        dry = lower_cell("qwen3-0.6b", shape.name, False, mesh_shape=(1, 1),
-                         device="cuda", shape=shape, smoke=smoke)
-        rec["dryrun_wall_s"] = time.perf_counter() - t0
-        rec["dryrun"] = dry
-        pred = (dry["memory"]["argument_size_in_bytes"]
-                + dry["memory"]["temp_size_in_bytes"]) / 1e9
-        rec["predicted_peak_gb"] = pred
-        rec["peak_error"] = (pred - peak) / peak
-        rec["flop_rel_diff"] = (dry["cost"]["flops"] - counter.cost.flops) / \
-            counter.cost.flops
-        check(abs(rec["flop_rel_diff"]) <= LM_LAUNCH_FLOP_RTOL,
-              "lm_launch: dry-run FLOPs differ from the real step's",
-              dry["cost"]["flops"], counter.cost.flops)
-        # at smoke size the card's fixed allocations (cuBLAS's workspace)
-        # outweigh the model's, so only the full-width peak is gated
-        check(smoke or abs(rec["peak_error"]) <= LM_LAUNCH_PEAK_TOL,
-              "lm_launch: predicted peak off by more than 25 %", pred, peak)
+        # (b) the dry run of the same cell, here or (``dry`` False) in a
+        # process of its own that the caller holds to this record
+        if dry:
+            check_dry_run(rec, lm_launch_dry(smoke), smoke)
 
         # (c) checkpoint the (1, 1) state, restore, reshard: bitwise
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2210,6 +2253,41 @@ def lm_launch_card(out_dir: str, smoke: bool = False) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def lm_launch_dry(smoke: bool = False) -> dict:
+    """(b) of phase lm_launch: the dry run of (a)'s cell (mesh (1, 1), fake
+    CUDA tensors), needing no card."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import lower_cell
+
+    t0 = time.perf_counter()
+    dry = lower_cell("qwen3-0.6b", "lm_launch", False, mesh_shape=(1, 1),
+                     device="cuda", smoke=smoke, shape=ShapeSpec(
+                         "lm_launch", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"))
+    dry["wall_s"] = time.perf_counter() - t0
+    return dry
+
+
+def check_dry_run(rec: dict, dry: dict, smoke: bool = False) -> None:
+    """(b)'s gates on (a)'s record ``rec``: the dry run's FLOPs equal the
+    real step's, and (at full width) its predicted peak is within 25 % of
+    the measured one."""
+    peak, flops = rec["max_memory_allocated_gb"], rec["real_step_flops"]
+    rec["dryrun_wall_s"] = dry["wall_s"]
+    rec["dryrun"] = dry
+    pred = (dry["memory"]["argument_size_in_bytes"]
+            + dry["memory"]["temp_size_in_bytes"]) / 1e9
+    rec["predicted_peak_gb"] = pred
+    rec["peak_error"] = (pred - peak) / peak
+    rec["flop_rel_diff"] = (dry["cost"]["flops"] - flops) / flops
+    check(abs(rec["flop_rel_diff"]) <= LM_LAUNCH_FLOP_RTOL,
+          "lm_launch: dry-run FLOPs differ from the real step's",
+          dry["cost"]["flops"], flops)
+    # at smoke size the card's fixed allocations (cuBLAS's workspace)
+    # outweigh the model's, so only the full-width peak is gated
+    check(smoke or abs(rec["peak_error"]) <= LM_LAUNCH_PEAK_TOL,
+          "lm_launch: predicted peak off by more than 25 %", pred, peak)
+
+
 def _moments_like(opt, params):
     """AdamW's initial state for ``params``, as plain tensors on the card
     (``distribute`` then places them by ``opt_specs``)."""
@@ -2247,7 +2325,36 @@ def lm_launch_production() -> dict:
     rec["moe_decode"] = lower_cell(*LM_LAUNCH_MOE_DECODE, False,
                                    device="cuda")
     rec["moe_decode"]["wall_s"] = time.perf_counter() - t0
+    for key, (arch, shape, _) in LM_LAUNCH_STATE.items():
+        t0 = time.perf_counter()
+        rec[key] = lower_cell(arch, shape, False, device="cuda")
+        rec[key]["wall_s"] = time.perf_counter() - t0
+    rec["ended_at"] = time.time()
     return rec
+
+
+def state_gathers(rec: dict, arch: str) -> dict:
+    """A full-width dry-run record's all-gathers of decode state: an SSM
+    state's (head_dim, state) or a conv state's (width - 1, channels), a
+    KV cache's (kv heads, head_dim), each whole or a rank's share over
+    "model"; a table's vocab rows (a 2-D gather whose rows are a
+    multiple of the vocab)."""
+    cfg = get_config(arch)
+    n = rec["mesh"]["model"]
+    gathers = [c for c in rec["largest_collectives"]
+               if c["kind"] == "all-gather"]
+    P, N, C = cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner + 2 * cfg.ssm_state
+    G, hd = cfg.n_kv_heads, cfg.d_head
+    state = ({(P, N), (P // n, N), (cfg.conv_width - 1, C),
+              (cfg.conv_width - 1, C // n)} if cfg.ssm_state else set())
+    cache = {(G, hd), (G // n, hd), (G, hd // n)}
+    return {
+        "state": [c["shape"] for c in gathers if len(c["shape"]) >= 3
+                  and tuple(c["shape"][-2:]) in state],
+        "cache": [c["shape"] for c in gathers if len(c["shape"]) >= 4
+                  and tuple(c["shape"][-2:]) in cache],
+        "table": [c["shape"] for c in gathers if len(c["shape"]) == 2
+                  and c["shape"][0] % cfg.vocab == 0]}
 
 
 def production_gates(rec: dict) -> dict:
@@ -2317,46 +2424,138 @@ def production_gates(rec: dict) -> dict:
                      and out["moe_largest"] < out["moe_logits"])
     out["moe_decode_ok"] = (not out["moe_weight_gathers"] and
                             out["moe_decode_wire_gb"] <= LM_LAUNCH_MOE_WIRE_GB)
+    for key, (arch, _, jax_gb) in LM_LAUNCH_STATE.items():
+        r = rec[key]
+        wire = sum(v * RING_FACTORS[k]
+                   for k, v in r["collectives"].items()) / 1e9
+        bad = state_gathers(r, arch)
+        out[key] = {"wire_gb": wire, "bound_gb": LM_LAUNCH_STATE_WIRE * jax_gb,
+                    "gathers": bad,
+                    "ok": (r["cost"]["flops"] > 0 and not any(bad.values())
+                           and wire <= LM_LAUNCH_STATE_WIRE * jax_gb)}
     return out
 
 
-def _json_child(code: str, env=None):
+def _json_child(code: str, env=None, err_path=None):
     """``python -c code`` from the checkout, started now (its last line of
-    output is read by :func:`_json_result`)."""
-    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
-                            env=dict(os.environ, **(env or {})),
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    output is read by :func:`_json_result`); its errors to ``err_path``
+    where given (a child left running for minutes must not fill a pipe
+    no one reads yet)."""
+    err = subprocess.PIPE if err_path is None else open(err_path, "w")
+    try:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                env=dict(os.environ, **(env or {})),
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+    finally:
+        if err_path is not None:
+            err.close()
+    proc.err_path = err_path
+    return proc
 
 
 def _json_result(proc, what: str) -> dict:
     try:
         out, err = proc.communicate(timeout=LM_LAUNCH_TIMEOUT_S)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        _stop(proc)
+    if proc.err_path is not None:
+        with open(proc.err_path) as f:
+            err = f.read()
     check(proc.returncode == 0, what, proc.returncode, err[-3000:])
     return json.loads(out.strip().splitlines()[-1])
 
 
-def phase_lm_launch(out_dir: str) -> None:
+def _stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+class HostTrace:
+    """(d) of phase lm_launch in a child process started with the run:
+    its dry runs need no card, so they trace while the kernels build and
+    the card times them.  The child is paused while a main path times
+    its walls on the host (:meth:`paused`), its memory is charged to it,
+    not to the phases it runs beside (``RAM.child``), and phase
+    lm_launch_trace reads it before the phases from recovery on, which
+    time the host throughout."""
+
+    def __init__(self, out_dir: str):
+        self.proc = _json_child(
+            "import json, chip_smoke; print(json.dumps("
+            "chip_smoke.lm_launch_production()))",
+            err_path=os.path.join(out_dir, "lm_launch_production.err"))
+        self.started_at = time.time()
+        self.paused_s, self.pauses = 0.0, 0
+        RAM.child = self.proc
+
+    @contextlib.contextmanager
+    def paused(self):
+        live = self.proc.poll() is None
+        if live:
+            os.kill(self.proc.pid, signal.SIGSTOP)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if live:
+                os.kill(self.proc.pid, signal.SIGCONT)
+                self.paused_s += time.perf_counter() - t0
+                self.pauses += 1
+
+    def result(self) -> dict:
+        """The child's record (waiting for it), with the seconds from its
+        start to its end, its paused seconds and its memory peak."""
+        try:
+            rec = _json_result(self.proc, "lm_launch (d) process")
+        finally:
+            RAM.child = None
+        rec["host_trace"] = {"done_s": rec["ended_at"] - self.started_at,
+                             "paused_s": self.paused_s,
+                             "pauses": self.pauses,
+                             "anon_peak_gb": RAM.child_peak / 1e9}
+        return rec
+
+    def stop(self) -> None:
+        _stop(self.proc)
+
+
+def phase_lm_launch_trace() -> dict:
+    """Wait for and read (d) (:class:`HostTrace`): the phases from here on
+    time the host throughout, so none of them runs beside it."""
+    with phase("lm_launch_trace"):
+        rec = TRACE.result()
+        h = rec["host_trace"]
+        log(f"lm_launch (d) traced on the host from the run's start: done "
+            f"after {h['done_s']:.1f} s, paused {h['paused_s']:.1f} s in {h['pauses']} host-timed "
+            f"walls, its memory peak {h['anon_peak_gb']:.1f} GB "
+            f"(charged to it, not to those phases)")
+        return rec
+
+
+def phase_lm_launch(out_dir: str, prod: dict | None = None) -> None:
+    """(a)-(c) on the card in one process, (b)'s dry run on the host in
+    another beside it; ``prod`` is (d)'s record (:class:`HostTrace`;
+    None, the phase run alone: traced here beside them)."""
     with phase("lm_launch"):
         reset_counts()
-        # (d) traces on the host while (a)-(c) run on the card
-        prod = _json_child("import json, chip_smoke; print(json.dumps("
-                           "chip_smoke.lm_launch_production()))")
+        trace = HostTrace(out_dir) if prod is None else None
+        card = _json_child(
+            "import json, chip_smoke; print(json.dumps("
+            f"chip_smoke.lm_launch_card({out_dir!r}, dry=False), "
+            "default=str))", env=LM_RESUME_ENV)
         try:
-            card = _json_child(
+            dry = _json_result(_json_child(
                 "import json, chip_smoke; print(json.dumps("
-                f"chip_smoke.lm_launch_card({out_dir!r}), default=str))",
-                env=LM_RESUME_ENV)
+                "chip_smoke.lm_launch_dry()))"), "lm_launch (b) process")
             rec = _json_result(card, "lm_launch (a)-(c) process")
-            rec["production"] = _json_result(prod, "lm_launch (d) process")
+            rec["production"] = prod or trace.result()
         finally:
-            if prod.poll() is None:
-                prod.kill()
-                prod.wait()
+            _stop(card)
+            if trace is not None:
+                trace.stop()
+        check_dry_run(rec, dry)
         d, p = rec["dryrun"], rec["production"]
         log(f"lm_launch qwen3-0.6b (full width) on a (1, 1) DTensor mesh over "
             f"{rec['backend']}: {LM_LAUNCH_STEPS} steps of {LM_TRAIN_BATCH} x "
@@ -2420,7 +2619,13 @@ def phase_lm_launch(out_dir: str) -> None:
             f"{LM_LAUNCH_MOE_DECODE[1]} (full width): trace "
             f"{p['moe_decode']['compile_s']} s, wire "
             f"{g['moe_decode_wire_gb']:.4f} GB (<= {LM_LAUNCH_MOE_WIRE_GB}), "
-            f"expert-weight all-gathers {g['moe_weight_gathers']} (none)")
+            f"expert-weight all-gathers {g['moe_weight_gathers']} (none); "
+            + "; ".join(
+                f"{LM_LAUNCH_STATE[k][0]} {LM_LAUNCH_STATE[k][1]} (full "
+                f"width): trace {p[k]['compile_s']} s, wire "
+                f"{g[k]['wire_gb']:.5f} GB (<= {g[k]['bound_gb']:.5f}), "
+                f"state/cache/table all-gathers {g[k]['gathers']} (none)"
+                for k in LM_LAUNCH_STATE))
         check(g["temp_ok"], "lm_launch: train_4k temp over 2x JAX's",
               g["temp_gb"])
         check(g["vocab_ok"], "lm_launch: an all-gather or all-reduce of "
@@ -2435,6 +2640,10 @@ def phase_lm_launch(out_dir: str) -> None:
         check(g["moe_decode_ok"], "lm_launch: the MoE decode cell gathers "
               "expert weights or passes its wire bytes",
               g["moe_decode_wire_gb"], p["moe_decode"]["largest_collectives"])
+        for key in LM_LAUNCH_STATE:
+            check(g[key]["ok"], f"lm_launch: the {key} cell gathers a state, "
+                  "a cache or a table, or passes its wire bytes", g[key],
+                  p[key]["largest_collectives"])
         launched = counts()
         check(sum(launched.values()) == 0, "a kernel launched", launched)
         RESULT["lm_launch"] = rec
@@ -2477,26 +2686,32 @@ def main(argv=None) -> int:
     RAM.start()
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    phase_build()
-    phase_kernels_vs_plain()
-    phase_kernel_times(args.size)
-    phase_box2d4r_times(args.size)
-    phase_main_path("main_path_gradient2d", "gradient2d", args.size, 320,
-                    "cuda_db", DispatchPolicy())
-    phase_main_path("main_path_box2d1r", "box2d1r", args.size, 160, "cuda",
-                    DispatchPolicy(impl="cuda"))
-    phase_main_path("main_path_box2d4r", "box2d4r", args.size, 80, "mxu",
-                    DispatchPolicy(impl="mxu"), k_off=40)
-    phase_recovery(args.size, out_dir)
-    phase_calibrate_tune(args.size, out_dir)
-    phase_service(args.size, out_dir)
-    phase_sharded(args.size)
-    phase_hierarchical(args.size)
-    phase_elastic(args.size)
-    phase_shard_map(args.size)
-    phase_lm_serve()
-    phase_lm_train(out_dir)
-    phase_lm_launch(out_dir)
+    global TRACE
+    TRACE = HostTrace(out_dir)
+    try:
+        phase_build()
+        phase_kernels_vs_plain()
+        phase_kernel_times(args.size)
+        phase_box2d4r_times(args.size)
+        phase_main_path("main_path_gradient2d", "gradient2d", args.size, 320,
+                        "cuda_db", DispatchPolicy())
+        phase_main_path("main_path_box2d1r", "box2d1r", args.size, 160,
+                        "cuda", DispatchPolicy(impl="cuda"))
+        phase_main_path("main_path_box2d4r", "box2d4r", args.size, 80, "mxu",
+                        DispatchPolicy(impl="mxu"), k_off=40)
+        prod = phase_lm_launch_trace()
+        phase_recovery(args.size, out_dir)
+        phase_calibrate_tune(args.size, out_dir)
+        phase_service(args.size, out_dir)
+        phase_sharded(args.size)
+        phase_hierarchical(args.size)
+        phase_elastic(args.size)
+        phase_shard_map(args.size)
+        phase_lm_serve()
+        phase_lm_train(out_dir)
+        phase_lm_launch(out_dir, prod)
+    finally:
+        TRACE.stop()
     RESULT["total_s"] = time.perf_counter() - t_all
     line = kernels_line()
     RESULT.update(line)

@@ -11,11 +11,14 @@ all-gather result (port records only).  Cells are compared on wire GB:
 one kind of collective alone (an all-gather) says little, as XLA and
 DTensor spend collectives of different kinds on the same program.
 ``--src`` runs the code of another checkout (its ``src/``), so a parent
-commit and this one can be traced in one call.  ``--table``
-prints the summaries of dry-run directories side by side as a markdown
-table, with no tracing; a directory of records without a summary (the
-JAX package's ``python -m repro.launch.dryrun --all --both-meshes``)
-gets one made from its records.
+commit and this one can be traced in one call.  ``--table`` prints the
+summaries of dry-run directories side by side as a markdown table, with
+no tracing: the first the reference's (the JAX package's ``python -m
+repro.launch.dryrun --all --both-meshes``; a directory of records
+without a summary gets one made from its records), each other held to
+it cell by cell (:func:`verdict`: FLOPs and wire within 1.25x, temp
+within the reference's plus a serving cell's new cache) and the last
+two to each other (:func:`agree`: 2 %, 2 %, 5 %).
 
 ``--device`` is the fake tensors' device (``cuda``, the default, or
 ``cpu`` on a machine with no card).
@@ -28,10 +31,11 @@ Usage (``S`` = ``python examples/torch_dryrun_sweep.py``):
         --all --both-meshes --out artifacts/dry_jax
     S --table artifacts/dry_jax artifacts/dry_before artifacts/dry_after
 
-The default cells are the ones whose partitioning the port follows the
-reference's on: ``train_4k`` on both production meshes for nine archs,
-``decode_32k`` on (16, 16) for six, ``prefill_32k`` on (16, 16) for the
-two Mamba-2 archs.  ``--cells arch:shape:pod1,...`` picks others; a
+The default cells are every cell the reference's dry run
+(``python -m repro.launch.dryrun --all --both-meshes``) traces: each
+arch × shape × production mesh that ``cell_supported`` admits, 68 of
+80 (``long_500k`` is skipped for the full-attention and enc-dec
+archs).  ``--cells arch:shape:pod1,...`` picks others; a
 cell's fourth field names a flag of the dry-run CLI (e.g.
 ``mixtral-8x7b:train_4k:pod1:moe-block-dispatch``), its record kept
 under ``--out``'s folder of that name.
@@ -47,25 +51,28 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-TRAIN = ["qwen3-0.6b", "minitron-4b", "phi3-medium-14b",
-         "llama4-maverick-400b-a17b", "h2o-danube-1.8b", "mixtral-8x7b",
-         "zamba2-2.7b", "mamba2-130m", "llama-3.2-vision-90b"]
-DECODE = ["qwen3-0.6b", "minitron-4b", "phi3-medium-14b",
-          "llama4-maverick-400b-a17b", "llama-3.2-vision-90b",
-          "mixtral-8x7b"]
-PREFILL = ["mamba2-130m", "zamba2-2.7b"]
+ROOT_SRC = os.path.join(ROOT, "src")
 # trace cost, heaviest first (a cell's order in the queue, not a gate)
 _WEIGHT = {"llama-3.2-vision-90b": 6, "llama4-maverick-400b-a17b": 5,
            "phi3-medium-14b": 4, "mixtral-8x7b": 4, "minitron-4b": 3,
            "zamba2-2.7b": 3, "h2o-danube-1.8b": 2, "qwen3-0.6b": 2,
-           "mamba2-130m": 1}
+           "whisper-tiny": 1, "mamba2-130m": 1}
+# per shape: a fake-tensor prefill of 32k tokens walks every attention
+# chunk pair of every layer, the costliest trace of all
+_SHAPE_COST = {"prefill_32k": 40, "train_4k": 10, "long_500k": 1,
+               "decode_32k": 1}
 
 
 def default_cells() -> list:
-    cells = [(a, "train_4k", m) for a in TRAIN for m in ("pod1", "pod2")]
-    cells += [(a, "decode_32k", "pod1") for a in DECODE]
-    cells += [(a, "prefill_32k", "pod1") for a in PREFILL]
-    return cells
+    """Every (arch, shape, mesh) cell that ``cell_supported`` admits."""
+    if ROOT_SRC not in sys.path:
+        sys.path.insert(0, ROOT_SRC)
+    from repro_torch.configs import (ARCH_NAMES, SHAPES, cell_supported,
+                                     get_config)
+
+    return [(a, s, m) for a in ARCH_NAMES for s in SHAPES
+            for m in ("pod1", "pod2")
+            if cell_supported(get_config(a), SHAPES[s])[0]]
 
 
 def _parse_cells(text: str) -> list:
@@ -74,7 +81,7 @@ def _parse_cells(text: str) -> list:
 
 def _cost(cell) -> float:
     arch, shape, mesh = cell[:3]
-    k = {"train_4k": 10, "prefill_32k": 12, "decode_32k": 1}.get(shape, 1)
+    k = _SHAPE_COST.get(shape, 1)
     return _WEIGHT.get(arch, 1) * k * (2 if mesh == "pod2" else 1)
 
 
@@ -158,6 +165,7 @@ def summarize(out: str, status: dict) -> dict:
                     tflop=rec["cost"]["flops"] / 1e12,
                     arguments_gb=mem["argument_size_in_bytes"] / 1e9,
                     temp_gb=mem["temp_size_in_bytes"] / 1e9,
+                    alias_gb=mem["alias_size_in_bytes"] / 1e9,
                     collectives_gb={k: v / 1e9 for k, v in
                                     rec["collectives"].items() if v},
                     wire_gb=wire_bytes(rec["collectives"]) / 1e9)
@@ -183,18 +191,6 @@ def wire_bytes(colls: dict) -> float:
     return sum(v * RING.get(k, 1.0) for k, v in colls.items())
 
 
-def _fmt(row, key) -> str:
-    if row is None:
-        return "—"
-    if "error" in row:
-        return "FAIL"
-    if "skipped" in row:
-        return "skip"
-    if key not in row:
-        return str(row.get("rc", "—"))
-    return f"{row[key]:.1f}"
-
-
 def load_summary(out: str) -> dict:
     """``out``'s summary.json, or one made from its records (a sweep of
     the dry-run CLI's own, e.g. ``--all --both-meshes``)."""
@@ -206,26 +202,73 @@ def load_summary(out: str) -> dict:
     return summarize(out, {t: {"rc": 0} for t in tags})
 
 
-def table(dirs) -> str:
+# the gates a port cell is held to against the reference's record of it,
+# per device: FLOPs and wire within 1.25x; temp within the reference's
+# plus, in a serving cell, the one new cache the port keeps by design
+# (the record's alias bytes; the reference writes into its donated
+# cache); and two port sweeps (torch versions) within these fractions
+GATE_X = {"tflop": 1.25, "wire_gb": 1.25}
+AGREE = {"temp_gb": 0.02, "tflop": 0.02, "wire_gb": 0.05}
+
+
+def verdict(row, ref, tag: str) -> str:
+    """``ok``, or the gates the port cell ``row`` misses against the
+    reference's ``ref`` (``FAIL`` where it did not trace)."""
+    if row is None or ref is None or "temp_gb" not in ref:
+        return "—"
+    if "error" in row or "temp_gb" not in row:
+        return "FAIL"
+    bad = [k for k, x in GATE_X.items() if row[k] > x * ref[k]]
+    new_cache = row.get("alias_gb", 0.0) if "train" not in tag else 0.0
+    if row["temp_gb"] > ref["temp_gb"] + new_cache:
+        bad.append("temp")
+    return "ok" if not bad else "+".join(bad)
+
+
+def agree(a, b) -> str:
+    """``ok``, or the metrics on which two port sweeps' rows differ by
+    more than :data:`AGREE`."""
+    if not a or not b or "temp_gb" not in a or "temp_gb" not in b:
+        return "—"
+    bad = [k for k, tol in AGREE.items()
+           if abs(a[k] - b[k]) > tol * max(abs(a[k]), abs(b[k]), 1e-30)]
+    return "ok" if not bad else "+".join(bad)
+
+
+def table(ref: str, dirs) -> str:
+    """A markdown table of every cell of ``dirs`` (port sweeps) beside
+    the reference sweep ``ref``: temp, TFLOP and wire GB per device, the
+    new cache, each sweep's :func:`verdict` and whether the last two
+    agree (:func:`agree`)."""
+    r = load_summary(ref)
     sums = [load_summary(d) for d in dirs]
     tags = sorted(set().union(*sums), key=lambda t: (t.split("__")[1],
                                                      t.split("__")[2], t))
-    head = "| cell | " + " | ".join(
-        f"{k} {os.path.basename(os.path.normpath(d))}"
-        for k in ("temp GB", "TFLOP", "wire GB", "all-gather GB")
-        for d in dirs) + " |"
-    lines = [head, "|" + "---|" * (1 + 4 * len(dirs))]
+
+    def num(row, key):
+        if row is None:
+            return "—"
+        if "error" in row:
+            return "FAIL"
+        return f"{row[key]:.4g}" if key in row else str(row.get("rc", "—"))
+
+    names = [os.path.basename(os.path.normpath(d)) for d in dirs]
+    head = ("| cell | " + " | ".join(
+        f"{k} ref / {' / '.join(names)}"
+        for k in ("temp GB", "TFLOP", "wire GB"))
+        + " | new cache GB | gates | agree |")
+    lines = [head, "|" + "---|" * 7]
     for tag in tags:
-        cells = [_fmt(s.get(tag), "temp_gb") for s in sums]
-        cells += [_fmt(s.get(tag), "tflop") for s in sums]
-        cells += [(f"{wire_bytes(s[tag]['collectives_gb']):.1f}"
-                   if tag in s and "collectives_gb" in s[tag]
-                   else _fmt(s.get(tag), "-")) for s in sums]
-        cells += [(f"{s[tag]['collectives_gb'].get('all-gather', 0.0):.1f}"
-                   if tag in s and "collectives_gb" in s[tag]
-                   else _fmt(s.get(tag), "-")) for s in sums]
-        lines.append(f"| {tag.replace('__', ' ')} | " + " | ".join(cells)
-                     + " |")
+        rows = [s.get(tag) for s in sums]
+        cols = [" / ".join([num(r.get(tag), k)] + [num(x, k) for x in rows])
+                for k in ("temp_gb", "tflop", "wire_gb")]
+        cache = next((x["alias_gb"] for x in rows[::-1]
+                      if x and "alias_gb" in x and "train" not in tag), None)
+        lines.append(
+            f"| {tag.replace('__', ' ')} | " + " | ".join(cols)
+            + f" | {'—' if cache is None else f'{cache:.4g}'} | "
+            + " ".join(verdict(x, r.get(tag), tag) for x in rows)
+            + f" | {agree(*rows[-2:]) if len(rows) > 1 else '—'} |")
     return "\n".join(lines)
 
 
@@ -235,17 +278,21 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=ROOT,
                     help="root of the checkout whose code is traced")
     ap.add_argument("--jobs", type=int, default=8)
-    ap.add_argument("--deadline", type=float, default=1800.0,
-                    help="seconds before running cells are cut")
+    ap.add_argument("--deadline", type=float, default=3300.0,
+                    help="seconds before running cells are cut (the 68 "
+                         "cells take most of an hour on 8 cores; a "
+                         "32k-token prefill trace alone up to ~1 h)")
     ap.add_argument("--device", default="cuda",
                     help="device of the fake tensors (cuda, or cpu)")
     ap.add_argument("--cells", default=None,
                     help="arch:shape:pod1|pod2,... (default: the sweep's)")
     ap.add_argument("--table", nargs="+", default=None,
-                    help="print these sweeps' summaries side by side")
+                    help="the reference's sweep, then port sweeps: their "
+                         "cells side by side against the gates, the last "
+                         "two compared")
     args = ap.parse_args(argv)
     if args.table:
-        print(table(args.table))
+        print(table(args.table[0], args.table[1:]))
         return 0
     cells = _parse_cells(args.cells) if args.cells else default_cells()
     t0 = time.monotonic()

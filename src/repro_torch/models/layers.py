@@ -134,19 +134,21 @@ def constrain_acts(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def local_region(fn, args, in_placements, out_placements, mesh):
+def local_region(fn, args, in_placements, out_placements, mesh,
+                 partial_grads=()):
     """``fn`` on each rank's local tensors (DTensor's ``local_map``): the
     DTensor ``args`` are redistributed to ``in_placements`` (None for a
     non-DTensor arg), the outputs are DTensors placed by
     ``out_placements`` (a tuple with one placements tuple per output).
     An input replicated over a mesh dim that another input is sharded on
-    takes its gradient as a ``Partial`` sum there: each rank's local
-    gradient is its share of the whole."""
+    (or that ``partial_grads`` names: ``fn`` splits the work there
+    itself) takes its gradient as a ``Partial`` sum there: each rank's
+    local gradient is its share of the whole."""
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
 
     split = {i for pl in in_placements if pl is not None
-             for i, q in enumerate(pl) if q.is_shard()}
+             for i, q in enumerate(pl) if q.is_shard()} | set(partial_grads)
     grads = tuple(
         None if pl is None else tuple(
             q if q.is_shard() else (Partial() if i in split else Replicate())
@@ -347,6 +349,92 @@ def shard_index(mesh, dims) -> tuple:
     return k, n
 
 
+def rows_times_split_weight(xl, wl, mesh, f, rows_split: bool):
+    """Inside a region: ``x @ w`` for this rank's rows ``xl`` (R, ..., K),
+    where the weight's ``K`` side is split over the mesh dim ``f`` (FSDP;
+    ``wl`` its local (K/n, N) rows; ``f`` None: whole): the rows go to
+    the weight, not the weight to the rows.  Where the rows are split
+    over ``f`` too, each rank's slice of ``K`` of every rank's rows comes
+    by an all-to-all and the partial products go back by a
+    reduce-scatter; else each rank takes its slice of ``K`` and the
+    partial products are summed over ``f``.  Returns (R, ..., N)."""
+    if f is None:
+        return xl @ wl.to(xl.dtype)
+    if rows_split:
+        xm = all_to_all(xl, xl.ndim - 1, 0, mesh, f)
+        return reduce_scatter(xm @ wl.to(xm.dtype), 0, mesh, [f])
+    k0 = shard_offset(xl.shape[-1], mesh, [f])
+    xm = xl[..., k0:k0 + wl.shape[0]]
+    return all_reduce(xm @ wl.to(xm.dtype), "sum", mesh, [f])
+
+
+def column_chunk(n: int, mesh, t, r=None) -> tuple:
+    """Rank ``r``'s (None: this rank's) chunk ``(c0, c1)`` of ``n``
+    entries split over mesh dim ``t`` DTensor's way (``torch.chunk``,
+    the last ones shorter or empty) and the chunk length ``c`` every
+    rank pads to; ``t`` None: all ``n``."""
+    if t is None:
+        return 0, n, n
+    c = -(-n // mesh.size(t))
+    c0 = min((mesh.get_local_rank(t) if r is None else r) * c, n)
+    return c0, min(n, c0 + c), c
+
+
+def gather_chunks(y, dim: int, n: int, mesh, t):
+    """Inside a region: the chunks ``y`` of :func:`column_chunk` (this
+    rank's entries of a dim of ``n``, along ``dim``) all-gathered over
+    mesh dim ``t``, padded to one length for the gather and cut back:
+    every rank holds all ``n``.  Under autograd its backward takes the
+    rank's own chunk of the gradient, the output being replicated (each
+    rank holds the whole gradient)."""
+    return _GatherChunks.apply(y, dim, n, mesh, t)
+
+
+class _GatherChunks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, dim, n, mesh, t):
+        c0, c1, c = column_chunk(n, mesh, t)
+        ctx.args = (dim, c0, c1)
+        pad = [0, 0] * (y.ndim - 1 - dim) + [0, c - y.shape[dim]]
+        return _gather(F.pad(y, pad), dim, mesh, [t]).narrow(dim, 0, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, c0, c1 = ctx.args
+        return (g.narrow(dim, c0, c1 - c0),) + (None,) * 4
+
+
+def exchange_ranges(t, dim: int, have, wants, mesh, md):
+    """Inside a region: ``t`` holds entries ``have(r)`` = (lo, hi) of a
+    dim's global index on rank ``r`` of mesh dim ``md`` (contiguous,
+    increasing with ``r``), and rank ``r`` wants the sorted, disjoint
+    ranges ``wants(r)``.  Returns this rank's wanted entries in index
+    order, moved by one all-to-all with uneven splits (a rank sends each
+    other rank only what it wants of its own)."""
+    import torch.distributed._functional_collectives as funcol
+
+    n, me = mesh.size(md), mesh.get_local_rank(md)
+
+    def cut(a, b, lo, hi):
+        return max(a, lo), min(b, hi)
+
+    lo, hi = have(me)
+    send, in_sizes = [], []
+    for k in range(n):
+        pieces = [t.narrow(dim, a - lo, b - a) for a, b in
+                  (cut(a, b, lo, hi) for a, b in wants(k)) if b > a]
+        in_sizes.append(sum(p.shape[dim] for p in pieces))
+        send += pieces
+    out_sizes = [sum(max(0, b - a) for a, b in
+                     (cut(a, b, *have(k)) for a, b in wants(me)))
+                 for k in range(n)]
+    x = (torch.cat(send, dim) if send else t.narrow(dim, 0, 0))
+    x = x.movedim(dim, 0).contiguous()
+    y = _waited(funcol.all_to_all_single(x, out_sizes, in_sizes,
+                                         mesh.get_group(md)))
+    return y.movedim(0, dim)
+
+
 def _reduced(x):
     """``x`` with its partial placements reduced (replicated), and its
     gradient redistributed to those replicated placements."""
@@ -464,8 +552,59 @@ def dense(w, x):
         # row-parallel product) is reduced here, once, as Megatron's
         # row-parallel layer does, not wherever DTensor meets it next
         x = _GradPlaced.apply(_one_leading_shard(x))
-        return _Reduced.apply(x @ w.to(x.dtype))
+        if not _few_rows(x, w):
+            return _Reduced.apply(x @ w.to(x.dtype))
+        # few rows (a decode step) go to the weight, as rows of one
+        # matrix (a batched product expands the weight along the batch),
+        # and come back split as the residual stream is, by explicit
+        # all-to-alls where DTensor would move the shards itself by a
+        # collective it picks by device type (an all-gather on a CPU
+        # mesh, an all-to-all on a CUDA one)
+        lead = x.shape[:-1]
+        x = _rows_to_weight(x.reshape(-1, x.shape[-1]), w)
+        y = _Reduced.apply(x @ w.to(x.dtype))
+        return _rows_split(y.reshape(*lead, y.shape[-1]))
     return x @ w.to(x.dtype)
+
+
+def _few_rows(x, w) -> bool:
+    """Are the DTensor ``x``'s rows few beside the DTensor weight ``w``
+    split over data axes (FSDP): one rank's columns of the product's
+    rows smaller than ``w`` gathered over them (a decode step, where
+    DTensor moves the rows to the weight, not the weight to the rows)?"""
+    if not is_dtensor(w):
+        return False
+    mesh = w.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    n = math.prod(mesh.size(i) for i, q in enumerate(w.placements)
+                  if q.is_shard() and names[i] in ("pod", "data"))
+    wl = w.to_local()
+    return n > 1 and math.prod(x.shape[:-1]) * wl.shape[-1] < wl.numel() * n
+
+
+def _rows_to_weight(x, w):
+    """The DTensor ``x`` with its rows' shard moved to its last dim on
+    each mesh dim that splits both its rows and ``w``'s rows (FSDP), by
+    :func:`move_shard`."""
+    for i, q in enumerate(x.placements):
+        if (q.is_shard(0) and w.placements[i].is_shard(0)
+                and x.device_mesh.size(i) > 1):
+            x = move_shard(x, i, 0, x.ndim - 1)
+    return x
+
+
+def _rows_split(y):
+    """The DTensor ``y`` with a shard of its last dim over a data axis
+    moved to its rows (by :func:`move_shard`) where the rows divide it:
+    a product whose few rows met a weight's column split over "data"
+    (DTensor gathers the rows, not the weight)."""
+    mesh = y.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    for i, q in enumerate(y.placements):
+        if (q.is_shard(y.ndim - 1) and names[i] in ("pod", "data")
+                and mesh.size(i) > 1 and y.shape[0] % mesh.size(i) == 0):
+            y = move_shard(y, i, y.ndim - 1, 0)
+    return y
 
 
 class _Reduced(torch.autograd.Function):
@@ -737,9 +876,16 @@ def _sharded_attention(q, k, v, causal, window, q_offset, q_chunk,
                        kv_chunk):
     """``chunked_attention`` on DTensors as a head-parallel region: each
     rank attends its batch rows with its query heads (and their kv
-    groups)."""
+    groups).  A few query rows against a kv whose head_dim is split
+    (whisper's cross-attention cache in a decode step) take the kv as it
+    lies: partial dot products summed over head_dim's mesh dims
+    (:func:`_partial_dot_attention`), no gather of the kv."""
     mesh = q.device_mesh
     H, G = q.shape[2], k.shape[2]
+    hdims = length_dims(k, 3)
+    if (hdims and not causal and window is None
+            and 2 * H * q.shape[1] < G * k.shape[3]):
+        return _partial_dot_attention(q, k, v, hdims)
     q_pl, kv_pl, t, kv_rep = _head_placements(mesh, q.shape[0], H, G)
 
     def local(ql, kl, vl):
@@ -750,6 +896,34 @@ def _sharded_attention(q, k, v, causal, window, q_offset, q_chunk,
                                  q_chunk, kv_chunk)
 
     return local_region(local, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,), mesh)
+
+
+def _partial_dot_attention(q, k, v, hdims):
+    """Full (unmasked) attention of q (B, Sq, H, Dh) over k/v (B, Sk, G,
+    Dh) whose head_dim is split over the mesh dims ``hdims``, as one
+    region in k's placements: each rank scores its slice of head_dim,
+    the scores are summed over ``hdims`` (fewer bytes than the kv where
+    the query rows are few), and the output's slices are gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    q_pl = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in k.placements)
+    Dh = q.shape[-1]
+
+    def local(ql, kl, vl):
+        B, Sq, H, _ = ql.shape
+        G, dl = kl.shape[2], kl.shape[3]
+        h0 = shard_offset(Dh, mesh, hdims)
+        qh = ql[..., h0:h0 + dl].reshape(B, Sq, G, H // G, dl)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qh, kl).float()
+        s = all_reduce(s, "sum", mesh, hdims) / math.sqrt(Dh)
+        p = torch.softmax(s, dim=-1).to(vl.dtype)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p, vl).reshape(B, Sq, H, dl)
+        return all_gather(o, 3, mesh, hdims)
+
+    return local_region(local, (q, k, v), (q_pl, k.placements, v.placements),
+                        (q_pl,), mesh)
 
 
 def decode_attention(
@@ -800,8 +974,8 @@ def _sharded_decode_attention(q, k_cache, v_cache, cache_len):
 
 
 def length_dims(kv, dim: int = 1) -> list:
-    """The mesh dims of size > 1 that split ``dim`` (the length) of the
-    DTensor ``kv`` (empty for a plain tensor)."""
+    """The mesh dims of size > 1 that split ``dim`` (by default 1, a
+    cache's length) of the DTensor ``kv`` (empty for a plain tensor)."""
     if not is_dtensor(kv):
         return []
     mesh = kv.device_mesh
@@ -809,18 +983,23 @@ def length_dims(kv, dim: int = 1) -> list:
             if q.is_shard(dim) and mesh.size(i) > 1]
 
 
-def split_kv_attend(q, k, v, valid, mesh, dims):
+def split_kv_attend(q, k, v, valid, mesh, dims, hd_dims=()):
     """One query token against one rank's slice of a length-sharded kv
     (split-KV, FlashDecoding's merge): q (B, 1, H, Dh), k/v (B, Ll, G, Dh)
     local, ``valid`` (Ll,) which of the slice's entries count.  Each rank
     attends over its slice and the (output, max, sum) partials merge by a
     log-sum-exp over the mesh ``dims``; returns (B, 1, H, Dh) in q's
-    dtype, on every rank."""
+    dtype, on every rank.  Where ``hd_dims`` split head_dim, q, k and v
+    are the rank's slice of it: the scores are partial dot products,
+    summed over ``hd_dims`` before the softmax, and the output's slices
+    are gathered over them."""
     B, Ll, G, Dh = k.shape
     H = q.shape[2]
+    n_hd = math.prod(mesh.size(i) for i in hd_dims)
     kq, vq = k.movedim(2, 1), v.movedim(2, 1)                  # (B,G,Ll,Dh)
     qh = q.movedim(2, 1).reshape(B, G, H // G, 1, Dh)
-    s = torch.einsum("bgrqd,bgkd->bgrqk", qh, kq).float() / math.sqrt(Dh)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qh, kq).float()
+    s = all_reduce(s, "sum", mesh, hd_dims) / math.sqrt(Dh * n_hd)
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -830,7 +1009,8 @@ def split_kv_attend(q, k, v, valid, mesh, dims):
     lo = torch.cat([o * a, p.sum(dim=-1, keepdim=True) * a], dim=-1)
     lo = all_reduce(lo, "sum", mesh, dims)
     o = (lo[..., :Dh] / lo[..., Dh:]).to(q.dtype)
-    return o.reshape(B, H, 1, Dh).movedim(1, 2)
+    o = all_gather(o, o.ndim - 1, mesh, hd_dims)
+    return o.reshape(B, H, 1, Dh * n_hd).movedim(1, 2)
 
 
 def swiglu_init(gen, d: int, f: int, device=None):

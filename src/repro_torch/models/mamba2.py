@@ -19,10 +19,14 @@ part (z, the SSM input, B and C, dt), each split over "model" its own
 way, and the scan runs as a region over each rank's batch rows and
 heads, as attention does, or, where the heads do not divide "model",
 over its slice of the sequence, the slices' states handed on by an
-all-gather (the chunked scan's own hand-off, one level up).
+all-gather (the chunked scan's own hand-off, one level up).  A decode
+step is one region in the state's own placements: each rank steps its
+heads (or head_dim entries) and conv channels, and only the step's few
+rows move.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -31,9 +35,10 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from .layers import (
-    _head_placements, all_gather, all_reduce, constrain_acts, dense,
-    dense_init, is_dtensor, local_region, model_dim, move_shard, randn,
-    rmsnorm, rmsnorm_init, split_heads,
+    _head_placements, all_gather, all_reduce, all_to_all, column_chunk,
+    constrain_acts, dense, dense_init, exchange_ranges, is_dtensor,
+    length_dims, local_region, model_dim, move_shard, randn, rmsnorm,
+    rmsnorm_init, rows_times_split_weight, split_heads,
 )
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_init_state", "mamba_decode_step"]
@@ -315,16 +320,23 @@ def _sharded_gated_norm(g, y, z):
         x_pl[t], g_pl[t], dims = Shard(2), Shard(0), [t]
     di = y.shape[-1]
 
-    def local(yl, zl, gl, eps=1e-6):
+    def local(yl, zl, gl):
         v = yl * F.silu(zl)
         if not dims:
-            return rmsnorm(gl, v, eps)
-        ss = all_reduce(v.float().square().sum(dim=-1, keepdim=True), "sum",
-                        mesh, dims)
-        return (v * torch.rsqrt(ss / di + eps).to(v.dtype)) * gl.to(v.dtype)
+            return rmsnorm(gl, v)
+        return _split_rmsnorm(gl, v, di, mesh, dims)
 
     return local_region(local, (y, z, g), (tuple(x_pl),) * 2 + (tuple(g_pl),),
                         (tuple(x_pl),), mesh)
+
+
+def _split_rmsnorm(gl, v, di: int, mesh, dims, eps: float = 1e-6):
+    """Inside a region: ``rmsnorm`` of ``v``, whose ``di`` channels are
+    split over the mesh ``dims`` (``gl`` the rank's gains): each rank's
+    sum of squares summed over them."""
+    ss = all_reduce(v.float().square().sum(dim=-1, keepdim=True), "sum",
+                    mesh, dims)
+    return (v * torch.rsqrt(ss / di + eps).to(v.dtype)) * gl.to(v.dtype)
 
 
 def _seq_split(x, mesh, t) -> bool:
@@ -433,13 +445,34 @@ def mamba_decode_step(p, cfg: ArchConfig, u: torch.Tensor, state):
     """One-token recurrent step.  u: (B, 1, D) -> (B, 1, D), new state."""
     res = u
     x = rmsnorm(p["ln"], u)
+    if is_dtensor(x):
+        y, state = _sharded_decode_core(p, cfg, x, state)
+        return res + y, state
     z, xBC, dt = _split_proj(cfg, dense(p["in_proj"], x))  # (B,1,*)
-    if is_dtensor(xBC):
-        y, state = _sharded_decode_core(p, cfg, z, xBC, dt, state)
-    else:
-        y, state = _decode_core(p, cfg, z, xBC, dt, state)
+    y, state = _decode_core(p, cfg, z, xBC, dt, state)
     out = res + dense(p["out_proj"], y)
     return out, state
+
+
+def _conv_step(p, xBC, conv):
+    """The causal conv's one new position: (silu'd output (B, C) in
+    fp32, new conv history)."""
+    hist = torch.cat([conv, xBC.to(conv.dtype)], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", hist.float(), p["conv_w"])
+    return F.silu(conv_out + p["conv_b"]), hist[:, 1:]
+
+
+def _ssm_step(p, xs, Bm, Cm, dt, ssm):
+    """The SSM recurrence's one step: xs (B, H, P), B/C (B, N) fp32, dt
+    (B, H) raw, the state (B, H, P, N) -> (y (B, H, P) in xs's dtype,
+    new state); ``p``'s dt_bias, A_log and D are the heads'."""
+    dtv = _softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dtv * A)                                   # (B,H)
+    xdt = xs.float() * dtv[..., None]                         # (B,H,P)
+    h = ssm * dA[..., None, None] + xdt[..., None] * Bm[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", h, Cm).to(xs.dtype)
+    return y + xs * p["D"].to(y.dtype)[None, :, None], h
 
 
 def _decode_core(p, cfg: ArchConfig, z, xBC, dt, state):
@@ -448,46 +481,154 @@ def _decode_core(p, cfg: ArchConfig, z, xBC, dt, state):
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     B = xBC.shape[0]
     # conv cache: last (w-1) inputs
-    hist = torch.cat([state["conv"], xBC.to(state["conv"].dtype)], dim=1)
-    conv_out = torch.einsum("bwc,wc->bc", hist.float(), p["conv_w"])
-    xBC1 = F.silu(conv_out + p["conv_b"]).to(z.dtype)[:, None]  # (B,1,C)
-    new_conv = hist[:, 1:]
-
-    xs = xBC1[..., :di].reshape(B, H, P)
-    Bm = xBC1[..., di: di + N].reshape(B, N).float()
-    Cm = xBC1[..., di + N:].reshape(B, N).float()
-    dtv = _softplus(dt.float().reshape(B, H) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    dA = torch.exp(dtv * A)                                   # (B,H)
-    xdt = xs.float() * dtv[..., None]                         # (B,H,P)
-    h = state["ssm"] * dA[..., None, None] + xdt[..., None] * Bm[:, None, None, :]
-    y = torch.einsum("bhpn,bn->bhp", h, Cm).to(z.dtype)
-    y = y + xs * p["D"].to(y.dtype)[None, :, None]
-    y = y.reshape(B, 1, di)
-    y = rmsnorm(p["gn"], y * F.silu(z))
+    conv_out, new_conv = _conv_step(p, xBC, state["conv"])
+    xBC1 = conv_out.to(z.dtype)                               # (B,C)
+    y, h = _ssm_step(p, xBC1[:, :di].reshape(B, H, P),
+                     xBC1[:, di: di + N].float(), xBC1[:, di + N:].float(),
+                     dt.reshape(B, H), state["ssm"])
+    y = rmsnorm(p["gn"], y.reshape(B, 1, di) * F.silu(z))
     return y, {"ssm": h, "conv": new_conv}
 
 
-def _sharded_decode_core(p, cfg: ArchConfig, z, xBC, dt, state):
-    """:func:`_decode_core` on DTensors, one local step per rank: batch
-    rows over the data axes, everything else whole on every rank (a
-    decode step is small; its einsums would flatten a batch-sharded and
-    a head-sharded dim together)."""
-    from torch.distributed.tensor import Replicate
+def _sharded_decode_core(p, cfg: ArchConfig, x, state):
+    """:func:`mamba_decode_step` after its norm, on DTensors, as one
+    region from the in-projection to the out-projection that takes the
+    state's placements as they are: the batch rows over the data axes
+    where they divide them, the SSM state's heads over "model" (or its
+    head_dim, where the heads do not divide "model"), the conv state's
+    channels over "model".  No state is gathered.  Each rank steps the
+    conv on its channels and the SSM on its heads (or head_dim entries);
+    the few rows' activations move instead, by all-to-alls that bring
+    each rank only the in-projection columns and conv outputs it reads.
+    The projections move the rows to the weights' FSDP split over
+    "data" (:func:`rows_times_split_weight`), each rank of "model"
+    computing a chunk of the in-projection's columns.  Where the heads
+    split, each rank keeps its heads' output for its rows of the
+    out-projection and the gated norm sums its squares over "model";
+    else the output (one token a row) is gathered over "model".
+    Returns (the block's output before the residual, (B, 1, D) placed as
+    the batch rows are; the new state)."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    mesh = xBC.device_mesh
-    b_pl, _, _, _ = _head_placements(mesh, xBC.shape[0], 1, 1)
-    b_pl = tuple(Replicate() if q.is_shard(2) else q for q in b_pl)
+    mesh = x.device_mesh
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    C, n_cols = di + 2 * N, 2 * di + 2 * N + H
+    names = list(mesh.mesh_dim_names or ())
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    split = bool(dp) and x.shape[0] % math.prod(mesh.size(i)
+                                                 for i in dp) == 0
+    x_pl = tuple(Shard(0) if split and i in dp else Replicate()
+                 for i in range(mesh.ndim))
+    w_in, w_out = p["in_proj"], p["out_proj"]
+
+    def one(t, dim):
+        dims = length_dims(t, dim)
+        if len(dims) > 1:
+            raise ValueError(f"a Mamba-2 decode operand split over mesh "
+                             f"dims {dims}")
+        return dims[0] if dims else None
+
+    f_in, t_in = one(w_in, 0), one(w_in, 1)
+    f_out, t_out = one(w_out, 1), one(w_out, 0)
+    t_conv = one(state["conv"], 2)
+    t_h, t_p = one(state["ssm"], 1), one(state["ssm"], 2)
+    t = model_dim(mesh)
+    t_cols = t_in if t_in is not None else (
+        t if t is not None and mesh.size(t) > 1 else None)
+    keys = ("dt_bias", "A_log", "D", "gn")
+
+    def mine(n, md):
+        return column_chunk(n, mesh, md)[:2]
+
+    def reads(r):
+        return _decode_reads(r, cfg, mesh, t_h, t_conv)
+
+    def local(xl, wi, wo, cw, cb, conv, ssm, *small):
+        sp = dict(zip(keys, small))
+        Bl = xl.shape[0]
+        h0, h1 = mine(H, t_h)
+        q0, q1 = mine(P, t_p)
+        c0, c1 = mine(C, t_conv)
+        want, conv_want = reads(None)
+        zs = want[0]
+        if t_in is None and t_cols is not None:
+            wi = wi[:, slice(*mine(n_cols, t_cols))]
+        cols = rows_times_split_weight(xl, wi, mesh, f_in,
+                                       split and f_in in dp)
+        if t_cols is not None:
+            cols = exchange_ranges(
+                cols, 2, lambda r: column_chunk(n_cols, mesh, t_cols, r)[:2],
+                lambda r: reads(r)[0], mesh, t_cols)
+        else:
+            cols = torch.cat([cols[..., a:b] for a, b in want], dim=-1)
+        nz = zs[1] - zs[0]
+        z, xr, dt = cols[..., :nz], cols[..., nz:nz + c1 - c0], cols[
+            ..., nz + c1 - c0:]
+        conv_out, new_conv = _conv_step({"conv_w": cw, "conv_b": cb}, xr,
+                                        conv)
+        conv_out = conv_out.to(z.dtype)
+        if t_conv is not None:
+            xbc = exchange_ranges(conv_out, 1,
+                                  lambda r: column_chunk(C, mesh, t_conv, r)[:2],
+                                  lambda r: reads(r)[1], mesh, t_conv)
+        else:
+            xbc = torch.cat([conv_out[:, a:b] for a, b in conv_want], -1)
+        nx = (h1 - h0) * P
+        xs = xbc[:, :nx].reshape(Bl, h1 - h0, P)[:, :, q0:q1]
+        sp = {k: v[h0:h1] if k != "gn" else v for k, v in sp.items()}
+        y, h = _ssm_step(sp, xs, xbc[:, nx:nx + N].float(),
+                         xbc[:, nx + N:].float(), dt.reshape(Bl, h1 - h0),
+                         ssm)
+        if t_h is not None:
+            # this rank's heads: its channels' share of the norm's sum
+            y = _split_rmsnorm(sp["gn"][zs[0]:zs[1]],
+                               y.reshape(Bl, 1, nx) * F.silu(z), di, mesh,
+                               [t_h])
+            rows, t_rows = zs, t_h
+        else:
+            y = all_gather(y, 2, mesh, [] if t_p is None else [t_p])
+            y = rmsnorm(sp["gn"], y.reshape(Bl, 1, di) * F.silu(z))
+            rows, t_rows = mine(di, t_out), t_out
+        r0, _ = mine(di, t_out)
+        wo = wo[rows[0] - r0:rows[1] - r0]
+        y = y[..., rows[0] - zs[0]:rows[1] - zs[0]]
+        red = [] if t_rows is None else [t_rows]
+        wo = wo.to(y.dtype)
+        if split and f_out in dp:
+            # every rank's rows to this rank's columns, and back
+            out = all_to_all(all_gather(y, 0, mesh, [f_out]) @ wo, 0, 2,
+                             mesh, f_out)
+            return all_reduce(out, "sum", mesh, red), new_conv, h
+        out = all_reduce(y @ wo, "sum", mesh, red)
+        return (all_gather(out, 2, mesh, [] if f_out is None else [f_out]),
+                new_conv, h)
+
     rep = (Replicate(),) * mesh.ndim
-    keys = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "gn")
-
-    def local(z, xBC, dt, conv, ssm, *w):
-        y, st = _decode_core(dict(zip(keys, w)), cfg, z, xBC, dt,
-                             {"conv": conv, "ssm": ssm})
-        return y, st["conv"], st["ssm"]
-
+    # the conv's weights split as the conv state's channels are
+    cw_pl = tuple(Shard(1) if i == t_conv else Replicate()
+                  for i in range(mesh.ndim))
+    cb_pl = tuple(Shard(0) if i == t_conv else Replicate()
+                  for i in range(mesh.ndim))
+    args = (x, w_in, w_out, p["conv_w"], p["conv_b"], state["conv"],
+            state["ssm"], *(p[k] for k in keys))
+    in_pl = (x_pl, w_in.placements, w_out.placements, cw_pl, cb_pl,
+             state["conv"].placements, state["ssm"].placements)
     y, conv, ssm = local_region(
-        local, (z, xBC, dt, state["conv"], state["ssm"],
-                *(p[k] for k in keys)),
-        (b_pl,) * 5 + (rep,) * len(keys), (b_pl, b_pl, b_pl), mesh)
+        local, args, in_pl + (rep,) * len(keys),
+        (x_pl, state["conv"].placements, state["ssm"].placements), mesh)
     return y, {"ssm": ssm, "conv": conv}
+
+
+def _decode_reads(r, cfg: ArchConfig, mesh, t_h, t_conv):
+    """What rank ``r`` of "model" reads in :func:`_sharded_decode_core`:
+    the in-projection's columns (z of its heads, all of z where the heads
+    are not split; its conv channels' inputs; its heads' dt) and the
+    conv's outputs (its heads' SSM inputs; B and C, which every head
+    reads), as sorted index ranges."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    h0, h1, _ = column_chunk(H, mesh, t_h, r)
+    c0, c1, _ = column_chunk(di + 2 * N, mesh, t_conv, r)
+    zs = (h0 * P, h1 * P) if t_h is not None else (0, di)
+    dt0 = 2 * di + 2 * N
+    return ([zs, (di + c0, di + c1), (dt0 + h0, dt0 + h1)],
+            [(h0 * P, h1 * P), (di, di + 2 * N)])

@@ -30,11 +30,12 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from .layers import (
-    _GradPlaced, _head_placements, chunked_attention, constrain_acts,
-    decode_attention, dense, dense_init, embed_init, gelu_mlp, gelu_mlp_init,
+    _GradPlaced, _head_placements, _tracks_grad, all_gather, all_to_all,
+    chunked_attention, column_chunk, constrain_acts, decode_attention, dense,
+    dense_init, embed_init, gather_chunks, gelu_mlp, gelu_mlp_init,
     is_dtensor, kv_groups, layernorm, layernorm_init, length_dims,
-    local_region, move_shard, remat_call, rmsnorm, rmsnorm_init, rope,
-    shard_index,
+    local_region, model_dim, move_shard, remat_call, rmsnorm, rmsnorm_init,
+    rope, rows_times_split_weight, shard_index, shard_offset,
     split_kv_attend, swiglu, swiglu_init,
 )
 
@@ -282,14 +283,29 @@ def _ring_slot(pos, L: int, window):
     return pos % L if window is not None else torch.clamp(pos, max=L - 1)
 
 
+def _write_rows(c, idx, x, off=None):
+    """``c`` (B, L, ...) with rows ``x`` written at entries ``idx``; with
+    ``off``, ``c`` is the slice from entry ``off`` of a longer cache, and
+    rows that fall outside it are dropped (written to a spare row that
+    is cut off)."""
+    if off is None:
+        return c.index_copy(1, idx, x)
+    Ll = c.shape[1]
+    j = idx - off
+    j = torch.where((j >= 0) & (j < Ll), j, Ll)
+    return torch.cat([c, c[:, :1]], dim=1).index_copy(1, j, x)[:, :Ll]
+
+
 def _attn_core(q, k, v, norms, positions, cache, *, hd: int, theta: float,
                causal: bool, use_rope: bool, window, self_kv: bool,
-               groups=None, q_offset: int = 0):
+               groups=None, q_offset: int = 0, cache_slice=None):
     """Attention after the projections: q (B, S, H·hd), k/v (B, Skv,
     G·hd) -> (o (B, S, H, hd), new cache).  ``groups=(g0, g1)``: attend
     with kv groups g0..g1-1 only (this rank's query heads'), after the
     cache took every group.  ``q_offset``: q holds the rows from there
-    on (this rank's of a sequence split), k/v and ``positions`` all."""
+    on (this rank's of a sequence split), k/v and ``positions`` all.
+    ``cache_slice=(off, L)``: a prefill's cache is this rank's slice,
+    from entry ``off``, of a cache of ``L`` entries (a length split)."""
     S = q.shape[1]
     q, k, v, positions = _qkv_heads(q, k, v, norms, positions, hd=hd,
                                     theta=theta, use_rope=use_rope,
@@ -313,22 +329,29 @@ def _attn_core(q, k, v, norms, positions, cache, *, hd: int, theta: float,
     else:
         if cache is not None:
             # prefill: write the (possibly windowed) KV tail into the cache
-            L = cache["k"].shape[1]
+            Ll = cache["k"].shape[1]
+            off, L = cache_slice or (0, Ll)
             kt = k[:, -L:].to(cache["k"].dtype)
             vt = v[:, -L:].to(cache["v"].dtype)
             nt = kt.shape[1]
             if window is not None:
                 # ring layout: entry for absolute position p lives at p % L
                 idx = (positions[-nt:] % L).long()
-                ck = cache["k"].index_copy(1, idx, kt)
-                cv = cache["v"].index_copy(1, idx, vt)
+                at = None if cache_slice is None else off
+                ck = _write_rows(cache["k"], idx, kt, at)
+                cv = _write_rows(cache["v"], idx, vt, at)
             elif nt == L:   # the tail is the whole cache
                 ck, cv = kt, vt
+                if cache_slice is not None:   # this rank's slice of it
+                    ck = kt[:, off:off + Ll].clone()
+                    cv = vt[:, off:off + Ll].clone()
             else:
                 ck = cache["k"].clone()
                 cv = cache["v"].clone()
-                ck[:, :nt] = kt
-                cv[:, :nt] = vt
+                hi = min(off + Ll, nt)
+                if hi > off:
+                    ck[:, :hi - off] = kt[:, off:hi]
+                    cv[:, :hi - off] = vt[:, off:hi]
             new_cache = {"k": ck, "v": cv,
                          "len": cache["len"] + positions.shape[0]}
         o = chunked_attention(q, *attend_groups(k, v), causal=causal,
@@ -341,10 +364,12 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
     """:func:`_attn_core` on DTensor projections as one head-parallel
     region: each rank takes its batch rows and query heads (with every kv
     group where the kv heads do not split over "model", so the cache
-    stays whole on each rank), the cache with its full length; the new
-    cache goes back to the cache's own placements.  Where the query
-    heads do not split over "model", its ranks take query rows instead
-    (sequence-parallel attention, the reference's q-chunk sharding)."""
+    stays whole on each rank), the cache with its full length, or, in a
+    prefill, with the length as the cache splits it (each rank writes the
+    prompt's entries that fall in its slice); the new cache goes back to
+    the cache's own placements.  Where the query heads do not split over
+    "model", its ranks take query rows instead (sequence-parallel
+    attention, the reference's q-chunk sharding)."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
@@ -354,7 +379,14 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
     leaves = [] if cache is None else [cache["k"], cache["v"], cache["len"]]
     back = [c.placements for c in leaves]
     S, n_t = q.shape[1], 1 if t is None else mesh.size(t)
+    ldims = length_dims(cache["k"]) if cache is not None and S > 1 else []
+    c_pl = tuple(Shard(1) if i in ldims else p_ for i, p_ in enumerate(kv_pl))
     seq = n_t > 1 and H % n_t != 0 and S > 1 and S % n_t == 0
+    # neither the heads nor the rows split evenly (no cache): each rank
+    # of "model" takes its uneven chunk of the query rows (``torch.chunk``'s,
+    # the last ones shorter or empty) and gathers the output's
+    rows = (n_t > 1 and H % n_t != 0 and S > 1 and S % n_t != 0
+            and cache is None)
     if seq:
         # the heads do not split over "model": its ranks split the query
         # rows instead, each with the whole kv (gathered once a layer)
@@ -367,11 +399,23 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
         if kv_rep and not seq:
             groups = kv_groups(mesh, t, ql.shape[-1] // cfg.d_head, H // G)
         lc = None if not cl else {"k": cl[0], "v": cl[1], "len": cl[2]}
+        part = None
+        if ldims:
+            j, n = shard_index(mesh, ldims)
+            part = (j * cl[0].shape[1], n * cl[0].shape[1])
         off = mesh.get_local_rank(t) * ql.shape[1] if seq else 0
+        if rows:
+            r0, r1, _ = column_chunk(S, mesh, t)
+            # an empty chunk attends the last row, its output cut: every
+            # rank's kv gets a gradient, if only a zero one
+            off = min(r0, S - 1)
+            ql = ql[:, off:off + max(r1 - r0, 1)]
         o, nc = core(ql, kl, vl, None if nq is None else (nq, nk), pos, lc,
-                     groups=groups, q_offset=off)
+                     groups=groups, q_offset=off, cache_slice=part)
         if seq:   # (B, S/n, H·hd), to leave split along H·hd (all-to-all)
             o = o.reshape(*o.shape[:2], -1)
+        if rows:
+            o = gather_chunks(o[:, :r1 - r0], 1, S, mesh, t)
         return (o,) if nc is None else (o, nc["k"], nc["v"], nc["len"])
 
     def pl_of(x, pl):
@@ -379,9 +423,10 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
 
     args = (q, k, v, *(norms or (None, None)), positions, *leaves)
     in_pl = (q_pl, kv_pl, kv_pl, *(pl_of(n, rep) for n in (norms or (None, None))),
-             pl_of(positions, rep), *((kv_pl, kv_pl, rep) if leaves else ()))
+             pl_of(positions, rep), *((c_pl, c_pl, rep) if leaves else ()))
     out = local_region(local, args, in_pl,
-                       (q_pl,) + ((kv_pl, kv_pl, rep) if leaves else ()), mesh)
+                       (q_pl,) + ((c_pl, c_pl, rep) if leaves else ()), mesh,
+                       partial_grads=(t,) if rows else ())
     o = out[0]
     if seq and o.shape[-1] % n_t == 0:
         o = move_shard(o, t, 1, 2)
@@ -395,19 +440,27 @@ def _sharded_attn_core(core, cfg: ArchConfig, q, k, v, norms, positions,
 def _split_kv_decode(core, cfg: ArchConfig, q, k, v, norms, positions,
                      cache, window):
     """A decode step against a cache whose length is sharded (the rules'
-    split-KV fallback where the kv heads do not divide "model") as one
-    region: each rank takes its batch rows with every head, writes the
-    new token's k/v only where its slice of the length holds the slot,
-    and attends over its slice; the partials merge over the length's
-    mesh dims (:func:`split_kv_attend`).  The cache keeps its
-    placements."""
-    from torch.distributed.tensor import Replicate
+    split-KV fallback: length over "model" where the kv heads do not
+    divide it, or over the data axes where the batch does not) as one
+    region that takes the cache's placements as they are: its batch,
+    length, kv heads or head_dim each split where the cache splits
+    them.  q, k and v enter split as the cache's batch and heads are;
+    each rank takes its slice of head_dim, writes the new token's k/v
+    only where its slice of the length holds the slot, and attends over
+    its slice; the partials merge over the length's mesh dims, and over
+    head_dim's, a partial dot product, where head_dim is split
+    (:func:`split_kv_attend`).  The cache keeps its placements."""
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
     kw = core.keywords
     ldims = length_dims(cache["k"])
+    hdims = length_dims(cache["k"], 3)
     c_pl = cache["k"].placements
-    b_pl = tuple(q_ if q_.is_shard(0) else Replicate() for q_ in c_pl)
+    # batch and kv heads as the cache splits them (the heads of q follow
+    # their kv groups'), head_dim whole: each rank slices its own
+    b_pl = tuple(Shard(0) if q_.is_shard(0) else
+                 Shard(2) if q_.is_shard(2) else Replicate() for q_ in c_pl)
     rep = (Replicate(),) * mesh.ndim
 
     def local(ql, kl, vl, nq, nk, pos, ck, cv, n):
@@ -415,6 +468,10 @@ def _split_kv_decode(core, cfg: ArchConfig, q, k, v, norms, positions,
             ql, kl, vl, None if nq is None else (nq, nk), pos, hd=kw["hd"],
             theta=kw["theta"], use_rope=kw["use_rope"],
             self_kv=kw["self_kv"])
+        if hdims:
+            h0 = shard_offset(ql.shape[-1], mesh, hdims)
+            hl = ck.shape[-1]
+            ql, kl, vl = (x[..., h0:h0 + hl] for x in (ql, kl, vl))
         Ll = ck.shape[1]
         j, nl = shard_index(mesh, ldims)
         local_pos = torch.arange(Ll, device=ck.device) + j * Ll
@@ -429,7 +486,7 @@ def _split_kv_decode(core, cfg: ArchConfig, q, k, v, norms, positions,
 
         ck, cv = write(ck, kl), write(cv, vl)
         valid = local_pos < torch.clamp(n + 1, max=Ll * nl)
-        o = split_kv_attend(ql, ck, cv, valid, mesh, ldims)
+        o = split_kv_attend(ql, ck, cv, valid, mesh, ldims, hdims)
         return o, ck, cv, n + 1
 
     def pl_of(x, pl):
@@ -502,9 +559,13 @@ def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
 def _sharded_embed(embed, tokens):
     """The embedding lookup on a DTensor (V, D) table as a vocab-parallel
     region (Megatron's): each rank looks its tokens up in the vocab rows
-    it holds over "model" (zeros for the others, summed over "model"),
-    the table gathered over the data axes; the tokens' batch rows stay
-    where they are.  DTensor's own gather and its backward
+    it holds over "model" (zeros for the others, summed over "model");
+    the tokens' batch rows stay where they are.  The table is gathered
+    over the data axes, which split its ``D`` side (FSDP), unless a few
+    tokens at inference go to the table instead (:func:`_moves_tokens`):
+    then every rank looks the tokens up in its slice of ``D`` and the
+    rows' slices come back by an all-to-all (tokens split over "data")
+    or an all-gather.  DTensor's own gather and its backward
     (``index_put``) fail on a sharded table."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
@@ -524,8 +585,14 @@ def _sharded_embed(embed, tokens):
         if dp and tokens.shape[0] % math.prod(mesh.size(i) for i in dp) == 0:
             for i in dp:
                 t_pl[i] = o_pl[i] = Shard(0)
+    f = None
+    if _moves_tokens(embed, tokens, 1, split, t_pl):
+        f = next(iter(length_dims(embed, 1)), None)
+        if f is not None:
+            e_pl[f] = Shard(1)
+    rows_split = f is not None and t_pl is not None and t_pl[f].is_shard(0)
 
-    def local(e, tok):
+    def lookup(e, tok):
         if not split:
             return e[tok]
         v0 = mesh.get_local_rank(t) * e.shape[0]
@@ -534,6 +601,15 @@ def _sharded_embed(embed, tokens):
         rows = e[idx.clamp(0, e.shape[0] - 1)]
         return rows * own[..., None].to(rows.dtype)
 
+    def local(e, tok):
+        if f is None:
+            return lookup(e, tok)
+        if rows_split:
+            rows = lookup(e, all_gather(tok, 0, mesh, [f]))
+            return all_to_all(rows, 0, rows.ndim - 1, mesh, f)
+        rows = lookup(e, tok)
+        return all_gather(rows, rows.ndim - 1, mesh, [f])
+
     out = local_region(local, (embed, tokens),
                        (tuple(e_pl), None if t_pl is None else tuple(t_pl)),
                        (tuple(o_pl),), mesh)
@@ -541,10 +617,67 @@ def _sharded_embed(embed, tokens):
                                    for q in o_pl])
 
 
+def _moves_tokens(w, x, d_dim: int, vocab_split: bool, x_pl) -> bool:
+    """Does an inference read of the DTensor table or head ``w`` by
+    ``x`` (tokens, or the head's rows) move ``x`` to ``w``'s ``D`` split
+    (dim ``d_dim``) rather than gather ``w``?  Where ``x`` has fewer rows
+    than the vocab and no autograd records the read, and where the
+    gather would bring each rank the whole of ``w`` (the vocab not split
+    over "model") or the same slice for the same rows on every data rank
+    (``x`` not split over the data axes)."""
+    if torch.is_grad_enabled() and _tracks_grad((w, x)):
+        return False
+    if (not length_dims(w, d_dim)
+            or math.prod(x.shape[:2]) >= w.shape[1 - d_dim]):
+        return False
+    rows_split = x_pl is not None and any(q.is_shard(0) for q in x_pl)
+    return not vocab_split or not rows_split
+
+
 def head_logits(p, cfg: ArchConfig, x):
     if cfg.tie_embeddings:
-        return dense(_table(p["embed"]).T, x)
-    return dense(p["head"], x)
+        return _head_product(p["embed"], x, 0)
+    return _head_product(p["head"], x, 1)
+
+
+def _head_product(w, x, v_dim: int):
+    """The logits ``x @ w`` (the head, (D, V): ``v_dim`` 1) or ``x @
+    w.T`` (a tied table, (V, D): ``v_dim`` 0).  On DTensors where the
+    vocab does not split over "model" and a few rows at inference read
+    ``w`` (:func:`_moves_tokens`), one vocab-parallel region: each rank
+    of "model" takes its uneven chunk of the vocab (``torch.chunk``'s),
+    the rows go to ``w``'s ``D`` split
+    (:func:`rows_times_split_weight`), and the logits' chunks are
+    gathered over "model"; ``w`` is never gathered.  Else :func:`dense`."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    w_t = _table(w).T if v_dim == 0 else w
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return dense(w_t, x)
+    mesh = w.device_mesh
+    t = model_dim(mesh)
+    V = w.shape[v_dim]
+    split = t is not None and mesh.size(t) > 1 and V % mesh.size(t) == 0
+    names = list(mesh.mesh_dim_names or ())
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    rows = bool(dp) and x.shape[0] % math.prod(mesh.size(i) for i in dp) == 0
+    x_pl = tuple(Shard(0) if rows and i in dp else Replicate()
+                 for i in range(mesh.ndim))
+    if split or not _moves_tokens(w, x, 1 - v_dim, False, x_pl):
+        return dense(w_t, x)
+    f = length_dims(w, 1 - v_dim)[0]
+    if t is not None and mesh.size(t) == 1:
+        t = None
+
+    def local(xl, wl):
+        wl = wl.T if v_dim == 0 else wl
+        if t is not None:
+            v0, v1, _ = column_chunk(V, mesh, t)
+            wl = wl[:, v0:v1]
+        y = rows_times_split_weight(xl, wl, mesh, f, x_pl[f].is_shard(0))
+        return y if t is None else gather_chunks(y, y.ndim - 1, V, mesh, t)
+
+    return local_region(local, (x, w), (x_pl, w.placements), (x_pl,), mesh)
 
 
 def _table(embed):

@@ -237,14 +237,18 @@ def _fp32_cache(cache):
                     cache)
 
 
-def decode_vs_plain(rank: int, world: int, archs, mesh_shape, steps: int = 3):
-    """Per arch, in fp32: a prefill of the smoke batch's tokens and
-    ``steps`` greedy decode steps, on plain tensors and on DTensors over
-    a ``mesh_shape`` mesh (params, tokens and the cache placed by the
-    port's rules); the worst absolute logit difference of each step and
-    the cache's placements and length.  An entry of ``archs`` may be
+def decode_vs_plain(rank: int, world: int, archs, mesh_shape, steps: int = 3,
+                    batch: int = B, one_cache: bool = False):
+    """Per arch, in fp32: a prefill of the smoke batch's first ``batch``
+    sequences (with their image or frame stubs) and ``steps`` greedy
+    decode steps, on plain tensors and on DTensors over a ``mesh_shape``
+    mesh (params, tokens, stubs and the cache placed by the port's
+    rules); the worst absolute logit difference of each step and the
+    cache's placements and length.  An entry of ``archs`` may be
     ``(label, arch, overrides)``: that arch with its smoke config's
-    fields replaced, reported under ``label``."""
+    fields replaced, reported under ``label``.  ``one_cache``: both
+    decodes start from the plain prefill's cache (placed by the rules),
+    so no roundoff of the prefill enters them."""
     from repro_torch.models.layers import sharded_scope
 
     mesh = make_mesh(mesh_shape, ("data", "model"), device_type="cpu")
@@ -254,20 +258,28 @@ def decode_vs_plain(rank: int, world: int, archs, mesh_shape, steps: int = 3):
         for entry in archs:
             label, arch, ov = ((entry, entry, None) if isinstance(entry, str)
                                else entry)
-            model, params, batch = smoke_case(arch, overrides=ov)
+            model, params, full = smoke_case(arch, overrides=ov)
             L = S + steps + 1
-            tok = batch["tokens"]
-            cache = _fp32_cache(model.init_cache(B, L, device="cpu"))
-            shape = ShapeSpec("case", L, B, "decode")
+            pb = {k: v[:batch] for k, v in full.items()
+                  if k in ("tokens", "images", "frames")}
+            cache = _fp32_cache(model.init_cache(batch, L, device="cpu"))
+            shape = ShapeSpec("case", L, batch, "decode")
             dp = tsh.distribute(params, mesh,
                                 tsh.param_specs(model.cfg, params, mesh))
             dc = tsh.distribute(cache, mesh,
                                 tsh.cache_specs(model.cfg, shape, cache, mesh))
-            dt = tsh.distribute({"tokens": tok}, mesh, tsh.batch_specs(
-                model.cfg, shape, {"tokens": tok}, mesh))["tokens"]
+            db = tsh.distribute(pb, mesh, tsh.batch_specs(
+                model.cfg, shape, pb, mesh))
             with sharded_scope(dp):
-                l0, c0 = model.prefill(params, {"tokens": tok}, cache)
-                l1, c1 = model.prefill(dp, {"tokens": dt}, dc)
+                l0, c0 = model.prefill(params, _stubbed(pb, True), cache)
+                l1, c1 = model.prefill(dp, _stubbed(db, True), dc)
+                # a Mamba-2 prefill hands its conv state on in bf16: held
+                # in fp32 from here, as the initial cache is
+                c0, c1 = _fp32_cache(c0), _fp32_cache(c1)
+                if one_cache:
+                    c1 = tsh.distribute(
+                        tree_map(lambda t: t.clone(), c0), mesh,
+                        tsh.cache_specs(model.cfg, shape, c0, mesh))
                 errs = [float((l1.full_tensor() - l0).abs().max())]
                 for i in range(steps):
                     nxt = l0[:, -1:].argmax(-1).to(torch.int32)
