@@ -139,7 +139,7 @@ Phases, none of them caught — any failure exits non-zero:
    weights (copied to the host); step ms and the device peak.  No kernel
    of ``repro_torch.kernels`` launches.
 15. lm_launch: the LM stack's launch layer, in three processes of its
-   own: (a)-(c) on the card, (b)'s dry run on the host beside them, and
+   own: (a), (e) and (c) on the card, (b)'s dry run on the host beside them, and
    (d) on the host from the run's start (its dry runs need no card; see
    below).  (a)-(c), one NCCL group of one rank, with
    ``CUBLAS_WORKSPACE_CONFIG`` set and deterministic algorithms: (a)
@@ -149,7 +149,13 @@ Phases, none of them caught — any failure exits non-zero:
    DTensors on a (1, 1) mesh placed by ``replan``, ``opt_specs`` and
    ``batch_specs`` (the dry run's hooks registered): losses and every
    param and moment leaf bitwise equal; step ms (CUDA events) of both
-   and the device peak.  (b) the dry run of that cell (mesh (1, 1), fake
+   and the device peak.  (e) then, on the same mesh, one sequence (B =
+   1, which the rules split over the data axis of size 1) for
+   qwen3-0.6b and mamba2-130m whole: a 2048-token prefill and 8 greedy
+   decode steps, and a loss with grads of one 2048-token sequence, on
+   DTensors placed by the rules (cache and labels too) against the
+   plain path from the same weights: logits, loss and grads bitwise;
+   ms (CUDA events) of both.  (b) the dry run of that cell (mesh (1, 1), fake
    CUDA tensors): its FLOPs equal to the real step's counted by
    ``analyze`` (step 0 above), and its predicted peak (arguments +
    temp) within 25 % of the measured ``max_memory_allocated``, with
@@ -356,6 +362,12 @@ LM_LAUNCH_MOE_WIRE_GB = 0.76
 LM_LAUNCH_STATE = {"long": ("mixtral-8x7b", "long_500k", 0.03988),
                    "ssm_decode": ("mamba2-130m", "decode_32k", 0.03972)}
 LM_LAUNCH_STATE_WIRE = 1.25
+# and one sequence on (a)'s (1, 1) mesh, whose data axis of size 1
+# "splits" a batch of one: qwen3-0.6b and mamba2-130m whole, a 2048-token
+# prefill and 8 greedy decode steps, and a loss with grads of one 2048-
+# token sequence, on DTensors placed by the rules against the plain path
+# from the same weights, bitwise as (a)'s steps are
+LM_LAUNCH_ONE = (("qwen3-0.6b", "mamba2-130m"), 2048, 8)
 RESULT = {"phases": {}, "host_ram_peak_gb": {}}
 
 
@@ -2209,6 +2221,8 @@ def lm_launch_card(out_dir: str, smoke: bool = False,
               "lm_launch: DTensor steps not bitwise to the plain Trainer",
               differ, losses, plain_losses)
 
+        rec["one_sequence"] = lm_launch_one_sequence(mesh, smoke)
+
         # (b) the dry run of the same cell, here or (``dry`` False) in a
         # process of its own that the caller holds to this record
         if dry:
@@ -2251,6 +2265,95 @@ def lm_launch_card(out_dir: str, smoke: bool = False,
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def lm_launch_one_sequence(mesh, smoke: bool = False) -> dict:
+    """(e) of phase lm_launch, on (a)'s (1, 1) NCCL ``mesh``: per arch of
+    ``LM_LAUNCH_ONE`` at full width (``smoke``: its smoke config), one
+    sequence of ``LM_LAUNCH_ONE``'s prompt, its prefill
+    and greedy decode steps and a loss with grads, on plain tensors and
+    on DTensors placed by the rules (params, tokens, labels, cache) from
+    the same weights, each decode step fed the plain path's token.  The
+    worst absolute differences (logits; the loss; grads over each leaf's
+    max) and the CUDA-event ms of both paths, gated bitwise."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.sharding import (
+        batch_specs, cache_specs, distribute, param_specs)
+
+    archs, prompt, steps = LM_LAUNCH_ONE
+    out = {}
+    for arch in archs:
+        cfg = (get_smoke_config if smoke else get_config)(arch)
+        model = build_model(cfg)
+        params = model.init_params(lm_gen(), device="cuda")
+        dparams = distribute(params, mesh, param_specs(cfg, params, mesh))
+        seq = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+            0, cfg.vocab, (1, prompt + 1)).astype(np.int32)).cuda()
+        shape = ShapeSpec("one_sequence", prompt + steps, 1, "decode")
+
+        def placed(tree, specs):
+            return distribute(tree, mesh, specs(cfg, shape, tree, mesh))
+
+        def timed(fn):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            r = fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            return r, ev[0].elapsed_time(ev[1])
+
+        def whole(t):
+            return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+        # the prefill and decode steps, plain and placed, step by step
+        batch = {"tokens": seq[:, :prompt]}
+        cache = model.init_cache(1, prompt + steps)
+        dbatch, dcache = placed(batch, batch_specs), placed(cache, cache_specs)
+        (l0, c0), pre_ms = timed(lambda: model.prefill(params, batch, cache))
+        (l1, c1), dpre_ms = timed(lambda: model.prefill(dparams, dbatch,
+                                                        dcache))
+        errs, ms, dms = [float((whole(l1) - l0).abs().max())], [], []
+        for i in range(steps):
+            tok = l0[:, -1:].argmax(-1).to(torch.int32)
+            dtok = placed({"token": tok}, batch_specs)["token"]
+            (l0, c0), t0 = timed(lambda: model.decode_step(
+                params, tok, prompt + i, c0))
+            (l1, c1), t1 = timed(lambda: model.decode_step(
+                dparams, dtok, prompt + i, c1))
+            errs.append(float((whole(l1) - l0).abs().max()))
+            ms.append(t0)
+            dms.append(t1)
+        scale = float(l0.abs().max())
+        del c0, c1, l0, l1, cache, dcache
+
+        # one loss with grads of the sequence (its next tokens the labels)
+        tr = Trainer(model, AdamW(), TrainConfig())
+        data = {"tokens": seq[:, :prompt], "labels": seq[:, 1:]}
+        ddata = placed(data, batch_specs)
+        (loss0, g0), loss_ms = timed(lambda: tr.value_and_grad(params, data))
+        (loss1, g1), dloss_ms = timed(lambda: tr.value_and_grad(dparams,
+                                                                ddata))
+        grad_err = max(float((whole(a) - b).abs().max()
+                             / (b.abs().max() + 1e-30))
+                       for a, b in zip(tree_leaves(g1), tree_leaves(g0)))
+        r = dict(prompt=prompt, steps=steps, logit_errs=errs,
+                 logit_scale=scale, loss=float(loss0),
+                 loss_err=abs(float(whole(loss1)) - float(loss0)),
+                 grad_err=grad_err, prefill_ms=dpre_ms,
+                 plain_prefill_ms=pre_ms, decode_ms=float(np.mean(dms)),
+                 plain_decode_ms=float(np.mean(ms)), loss_grads_ms=dloss_ms,
+                 plain_loss_grads_ms=loss_ms,
+                 placements=sorted({str(t.placements)
+                                    for t in tree_leaves(dparams)}))
+        out[arch] = r
+        check(bool(np.isfinite(errs + [r["loss"]]).all()), arch,
+              "one sequence: a value not finite", errs, r["loss"])
+        check(max(errs) == 0 and r["loss_err"] == 0 and grad_err == 0,
+              arch, "one sequence on the (1, 1) mesh not bitwise to the "
+              "plain path", errs, r["loss_err"], grad_err)
+        del params, dparams, g0, g1, loss0, loss1
+        torch.cuda.empty_cache()
+    return out
 
 
 def lm_launch_dry(smoke: bool = False) -> dict:
@@ -2566,6 +2669,19 @@ def phase_lm_launch(out_dir: str, prod: dict | None = None) -> None:
             f"{', '.join(f'{v:.1f}' for v in rec['step_ms'])} (step 0 "
             f"counted) vs plain {', '.join(f'{v:.1f}' for v in rec['plain_step_ms'])}; "
             f"device peak {rec['max_memory_allocated_gb']:.2f} GB")
+        for arch, r in rec["one_sequence"].items():
+            log(f"lm_launch one sequence {arch} (full width, B = 1 on a "
+                f"data axis of size 1) on that (1, 1) mesh: prefill of "
+                f"{r['prompt']} tokens + {r['steps']} decode "
+                f"steps, logits max abs err "
+                f"{max(r['logit_errs']):.3e} (scale {r['logit_scale']:.3f}), "
+                f"loss {r['loss']:.6f} err {r['loss_err']:.3e}, grads err "
+                f"{r['grad_err']:.3e} of a leaf's max (bitwise gate); ms "
+                f"(CUDA events) prefill {r['prefill_ms']:.1f} vs plain "
+                f"{r['plain_prefill_ms']:.1f}, decode step "
+                f"{r['decode_ms']:.2f} vs {r['plain_decode_ms']:.2f}, loss "
+                f"with grads {r['loss_grads_ms']:.1f} vs "
+                f"{r['plain_loss_grads_ms']:.1f}")
         log(f"lm_launch dry run of that cell: {d['compile_s']} s trace, "
             f"{d['cost']['flops'] / 1e12:.4f} TFLOP vs the real step's "
             f"{rec['real_step_flops'] / 1e12:.4f} (analyze; rel diff "

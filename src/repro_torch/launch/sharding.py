@@ -215,13 +215,17 @@ def cache_specs(cfg: ArchConfig, shape: ShapeSpec, cache_shape, mesh):
 
 def to_placements(mesh, spec: PartitionSpec) -> tuple:
     """The DTensor placements, one per mesh dim, of ``spec``: ``Shard(d)``
-    on every mesh dim that an entry of tensor dim ``d`` names, else
-    ``Replicate()``.  A tuple entry such as ``("pod", "data")`` shards its
-    dim over those mesh dims in mesh order (the order DTensor splits
-    in); any other order raises."""
+    on every mesh dim of size > 1 that an entry of tensor dim ``d``
+    names, else ``Replicate()`` (a split over one rank is that layout:
+    ``layers.one_rank_replicated``).  A tuple entry such as ``("pod",
+    "data")`` shards its dim over those mesh dims in mesh order (the
+    order DTensor splits in); any other order raises."""
     from torch.distributed.tensor import Replicate, Shard
 
-    axes = list(mesh_sizes(mesh))
+    from ..models.layers import one_rank_replicated
+
+    sizes = mesh_sizes(mesh)
+    axes = list(sizes)
     out = [Replicate()] * len(axes)
     for d, entry in enumerate(spec):
         if entry is None:
@@ -236,7 +240,7 @@ def to_placements(mesh, spec: PartitionSpec) -> tuple:
                 raise ValueError(f"mesh axis {axes[i]!r} named twice in "
                                  f"{spec!r}")
             out[i] = Shard(d)
-    return tuple(out)
+    return one_rank_replicated(sizes.values(), out)
 
 
 def local_shape(mesh, spec: PartitionSpec, shape: Sequence[int]) -> tuple:

@@ -147,6 +147,11 @@ def local_region(fn, args, in_placements, out_placements, mesh,
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
 
+    in_placements = tuple(
+        None if pl is None else one_rank_replicated(mesh.shape, pl)
+        for pl in in_placements)
+    out_placements = tuple(one_rank_replicated(mesh.shape, pl)
+                           for pl in out_placements)
     split = {i for pl in in_placements if pl is not None
              for i, q in enumerate(pl) if q.is_shard()} | set(partial_grads)
     grads = tuple(
@@ -166,6 +171,18 @@ def local_region(fn, args, in_placements, out_placements, mesh,
                      in_placements=tuple(in_placements),
                      in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def one_rank_replicated(sizes, placements) -> tuple:
+    """``placements``, one per mesh dim of ``sizes``, with a shard or a
+    partial sum over a mesh dim of size 1 written ``Replicate()``: the
+    same layout, in the one form DTensor's view rules take (they refuse
+    to flatten a dim of size 1 split over one rank, such as a batch of
+    one on a data axis of size 1)."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if n == 1 else q
+                 for n, q in zip(sizes, placements))
 
 
 def model_dim(mesh):
@@ -563,7 +580,7 @@ def dense(w, x):
         lead = x.shape[:-1]
         x = _rows_to_weight(x.reshape(-1, x.shape[-1]), w)
         y = _Reduced.apply(x @ w.to(x.dtype))
-        return _rows_split(y.reshape(*lead, y.shape[-1]))
+        return _rows_split(_GradPlaced.apply(y.reshape(*lead, y.shape[-1])))
     return x @ w.to(x.dtype)
 
 
@@ -735,6 +752,20 @@ def _layernorm_rows(x, g, b, eps: float):
 
 
 def layernorm(p, x, eps: float = 1e-5):
+    if is_dtensor(x):
+        # a row split along its columns over a data axis (the products of
+        # a batch that the data axes do not divide come out so) is
+        # gathered there first: left to DTensor, its centring comes out a
+        # partial mean with the batch rows split over "model", which the
+        # next product cannot flatten where the rows do not divide it
+        from torch.distributed.tensor import Replicate
+
+        names = x.device_mesh.mesh_dim_names or ()
+        pl = [Replicate() if q.is_shard(x.ndim - 1)
+              and names[i] in ("pod", "data") else q
+              for i, q in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
     return _by_row_blocks(lambda x, g, b: _layernorm_rows(x, g, b, eps), x,
                          p["g"], p["b"])
 

@@ -614,7 +614,7 @@ def _sharded_embed(embed, tokens):
                        (tuple(e_pl), None if t_pl is None else tuple(t_pl)),
                        (tuple(o_pl),), mesh)
     return out.redistribute(mesh, [Replicate() if q.is_partial() else q
-                                   for q in o_pl])
+                                   for q in out.placements])
 
 
 def _moves_tokens(w, x, d_dim: int, vocab_split: bool, x_pl) -> bool:

@@ -77,7 +77,8 @@ def place(cfg, params, batch, mesh):
     """Params and batch as DTensors placed by the port's rules."""
     dp = tsh.distribute(params, mesh, tsh.param_specs(cfg, params, mesh))
     db = tsh.distribute(batch, mesh, tsh.batch_specs(
-        cfg, ShapeSpec("case", S, B, "train"), batch, mesh))
+        cfg, ShapeSpec("case", S, batch["tokens"].shape[0], "train"), batch,
+        mesh))
     return dp, db
 
 
@@ -90,13 +91,14 @@ def _stubbed(batch, fp32: bool):
 
 
 def loss_and_grads(rank: int, world: int, archs, mesh_shape, fp32=True,
-                   overrides=None):
+                   overrides=None, batch: int = B):
     """Per arch: the plain loss and grads, and the loss and grads on
     DTensor params over a ``mesh_shape`` mesh (gathered), in fp32 when
-    ``fp32`` (the embedding's cast swapped out, the stubs kept fp32);
-    ``overrides`` replaces smoke-config fields of every arch.  An entry
-    of ``archs`` may be ``(label, arch, overrides)``: that arch with its
-    own overrides, reported under ``label``."""
+    ``fp32`` (the embedding's cast swapped out, the stubs kept fp32), on
+    the smoke batch's first ``batch`` sequences; ``overrides`` replaces
+    smoke-config fields of every arch.  An entry of ``archs`` may be
+    ``(label, arch, overrides)``: that arch with its own overrides,
+    reported under ``label``."""
     from repro_torch.optim import AdamW
     from repro_torch.train import TrainConfig, Trainer
 
@@ -107,10 +109,11 @@ def loss_and_grads(rank: int, world: int, archs, mesh_shape, fp32=True,
         for entry in archs:
             label, arch, ov = ((entry, entry, overrides)
                                if isinstance(entry, str) else entry)
-            model, params, batch = smoke_case(arch, overrides=ov)
+            model, params, full = smoke_case(arch, overrides=ov)
+            data = {k: v[:batch] for k, v in full.items()}
             tr = Trainer(model, AdamW(), TrainConfig(), device="cpu")
-            l0, g0 = tr.value_and_grad(params, _stubbed(batch, fp32))
-            dp, db = place(model.cfg, params, batch, mesh)
+            l0, g0 = tr.value_and_grad(params, _stubbed(data, fp32))
+            dp, db = place(model.cfg, params, data, mesh)
             l1, g1 = tr.value_and_grad(dp, _stubbed(db, fp32))
             g1 = [g.full_tensor() for g in tree_leaves(g1)]
             out[label] = dict(
@@ -121,6 +124,14 @@ def loss_and_grads(rank: int, world: int, archs, mesh_shape, fp32=True,
     finally:
         set_fp32(False)
     return out
+
+
+def in_turn(rank: int, world: int, calls):
+    """The rank programs of ``calls`` (pairs of a function name of this
+    module and its arguments after ``rank, world``) in turn, in one
+    group: one group per mesh for several programs.  Their results, in
+    order."""
+    return [globals()[name](rank, world, *args) for name, args in calls]
 
 
 def trainer_steps_one_rank(rank: int, world: int, archs, steps: int = 3):
