@@ -29,9 +29,15 @@ tensors.  On CUDA the pipelined run issues its H2D copies on a separate
 copy stream from the run's host array, page-locked for the run with
 ``cudaHostRegister`` so the copies are true DMA; the compute stream waits
 on each copy's event just before the register's first use.  Staged D2H
-boxes drain into the host array at HostCommit, synchronously, so the
-host array is the complete state of the run when a round's commit hook
-(``on_commit``) fires.
+boxes drain into the host array at HostCommit, synchronously, after one
+wait for the copy stream and the compute stream, so the host array is
+the complete state of the run when a round's commit hook (``on_commit``)
+fires.
+
+Tracing: under a profiler, :meth:`CompiledPlan.execute` names the domain
+copy, the pin and unpin, every chunk stage and each commit's wait and
+drain (:mod:`repro_torch.core.trace`); :class:`ExecStats` counts the
+bytes that the bucket pad's and region sharing's concatenations write.
 
 Faults: an injector (:mod:`repro_torch.core.faults`) is consulted before
 every bound op; a terminal fault surfaces as
@@ -78,6 +84,7 @@ from .plan import (
     HostCommit, ShardKernel, ShardLoad, ShardStore, ShardedPlan,
     TransferStats,
 )
+from .trace import span
 
 __all__ = [
     "ExecStats", "KernelCache", "BucketRegistry", "SlotPool",
@@ -110,7 +117,10 @@ class ExecStats:
     refinement (:func:`repro_torch.core.tune.tune`);
     ``faults_injected``/``retries`` count this run's injected faults and
     the transient ones absorbed by backoff, ``resumes`` the checkpoint
-    resumes of :func:`repro_torch.core.recovery.run_with_recovery`."""
+    resumes of :func:`repro_torch.core.recovery.run_with_recovery`.
+    ``pad_bytes``/``share_bytes`` (the port's own, after the JAX
+    package's fields) count the device bytes that the bucket pad's and
+    region sharing's ``torch.cat`` results hold, summed over the run."""
 
     executor: str = ""
     kernel_impl: str = ""
@@ -128,6 +138,8 @@ class ExecStats:
     resumes: int = 0               # checkpoint resumes (recovery loop)
     modeled_s: Optional[float] = None     # Sec. III prediction for this run
     model_error: Optional[float] = None   # (modeled_s - wall_s) / wall_s
+    pad_bytes: int = 0       # bytes the bucket pad's concatenations wrote
+    share_bytes: int = 0     # bytes region sharing's concatenations wrote
 
     def __post_init__(self):
         # plain attribute, not a dataclass field: asdict/== never see it
@@ -153,6 +165,8 @@ class ExecStats:
             self.faults_injected += other.faults_injected
             self.retries += other.retries
             self.resumes += other.resumes
+            self.pad_bytes += other.pad_bytes
+            self.share_bytes += other.share_bytes
             self.executor = self.executor or other.executor
             self.kernel_impl = self.kernel_impl or other.kernel_impl
             if other.modeled_s is not None:
@@ -293,11 +307,13 @@ class _Runtime:
     against.  ``copy_stream`` (pipelined CUDA runs) carries the H2D copies;
     ``ready`` holds each such register's copy event until its first use.
     ``committed_round`` is the newest round whose barrier fully drained
-    (-1 = none) and ``on_commit`` the per-round checkpoint hook."""
+    (-1 = none) and ``on_commit`` the per-round checkpoint hook.
+    ``pad_bytes``/``share_bytes`` sum the bytes of the bucket pad's and
+    region sharing's concatenations (:class:`ExecStats`)."""
 
     __slots__ = ("host", "regs", "bufs", "staged", "wire", "device",
                  "copy_stream", "ready", "on_commit", "committed_round",
-                 "pinned")
+                 "pinned", "pad_bytes", "share_bytes")
 
     def __init__(self, host: np.ndarray, n_regs: int, n_bufs: int,
                  device: torch.device, regs: Optional[List] = None,
@@ -316,6 +332,8 @@ class _Runtime:
         self.on_commit: Optional[Callable[[int, np.ndarray], None]] = None
         self.committed_round = -1
         self.pinned = False
+        self.pad_bytes = 0
+        self.share_bytes = 0
 
     def load(self, slot: int, arr: np.ndarray) -> None:
         """H2D of a host box into register ``slot``."""
@@ -342,19 +360,28 @@ class _Runtime:
         return self.regs[slot]
 
     def commit(self) -> None:
-        if self.copy_stream is not None:
-            self.copy_stream.synchronize()   # no copy still reads the host
-        for sl, rows, codec_name in self.staged:
-            if codec_name is None:
-                # waits for the rows' kernels, then copies into the host
-                torch.from_numpy(self.host[sl]).copy_(rows)
-                continue
-            arr = rows.cpu().numpy()
-            # the wire round trip: device-side encode, host-side decode
-            codec = get_codec(codec_name)
-            self.host[sl] = codec.decode(codec.encode(arr), arr.shape,
-                                         arr.dtype)
-        self.staged.clear()
+        """Drain the staged boxes into the host array (nothing to do when
+        none is staged).  The wait for the copy stream and for the rows'
+        kernels on the compute stream comes first, so the drain is copies
+        alone."""
+        if not self.staged:
+            return
+        with span("commit.wait"):
+            if self.copy_stream is not None:
+                self.copy_stream.synchronize()   # no copy still reads the host
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        with span("commit.drain"):
+            for sl, rows, codec_name in self.staged:
+                if codec_name is None:
+                    torch.from_numpy(self.host[sl]).copy_(rows)
+                    continue
+                arr = rows.cpu().numpy()
+                # the wire round trip: device-side encode, host-side decode
+                codec = get_codec(codec_name)
+                self.host[sl] = codec.decode(codec.encode(arr), arr.shape,
+                                             arr.dtype)
+            self.staged.clear()
 
     def commit_round(self, rnd: int) -> None:
         """A round's HostCommit barrier: drain staged writes (the copies
@@ -370,7 +397,8 @@ class _Runtime:
         """Page-lock the host array for the copy stream's H2D (pipelined
         CUDA runs only; a no-op otherwise)."""
         if self.copy_stream is not None and self.host.nbytes > 0:
-            host_register(self.host)
+            with span("pin"):
+                host_register(self.host)
             self.pinned = True
 
     def unpin(self) -> None:
@@ -379,8 +407,9 @@ class _Runtime:
         faulted or failed), so a later ``cudaHostRegister`` of the same
         memory succeeds."""
         if self.pinned:
-            self.copy_stream.synchronize()
-            host_unregister(self.host)
+            with span("unpin"):
+                self.copy_stream.synchronize()
+                host_unregister(self.host)
             self.pinned = False
 
 
@@ -388,12 +417,15 @@ class _Runtime:
 class LoweredStage:
     """One pipeline stage: all bound ops in plan order, pre-split into
     the prefetchable prefix (H2D + host-side Compress — ops that only
-    read committed host rows and write fresh slots) and the rest."""
+    read committed host rows and write fresh slots) and the rest.
+    ``span`` names a chunk stage in a profiler's trace
+    (:mod:`repro_torch.core.trace`)."""
 
     key: Optional[Tuple[int, int]]      # (round, chunk); None = barrier
     ops: Tuple[BoundOp, ...]
     prefetch: Tuple[BoundOp, ...]
     rest: Tuple[BoundOp, ...]
+    span: str = ""
 
 
 def check_domain(plan, x: np.ndarray) -> None:
@@ -465,7 +497,8 @@ class CompiledPlan:
                 copy_stream=None) -> _Runtime:
         """Build the slot-indexed runtime for one run, leasing slot
         storage from ``slot_pool`` when given."""
-        host = validate_domain(self.plan, x)
+        with span("domain_copy"):
+            host = validate_domain(self.plan, x)
         regs = bufs = None
         if slot_pool is not None:
             regs, bufs = slot_pool.acquire(self.n_reg_slots, self.n_buf_slots)
@@ -523,22 +556,20 @@ class CompiledPlan:
                 counts[tag] += 1
 
         stages = self.stages
+        n = len(stages)
+        prefetched = [False] * n
         try:
             rt.pin()
-            if not pipeline:
-                for stage in stages:
+            for j, stage in enumerate(stages):
+                if stage.key is None:       # HostCommit barrier
                     run(stage.ops)
-            else:
-                n = len(stages)
-                prefetched = [False] * n
-                for j, stage in enumerate(stages):
-                    if stage.key is None:       # HostCommit barrier
-                        run(stage.ops)
-                        continue
-                    # prefetch the next chunk's transfers under this
-                    # chunk's kernels; never across a barrier (host rows
-                    # change there)
-                    if j + 1 < n and stages[j + 1].key is not None:
+                    continue
+                with span(stage.span):
+                    # pipelined: prefetch the next chunk's transfers under
+                    # this chunk's kernels; never across a barrier (host
+                    # rows change there)
+                    if pipeline and j + 1 < n \
+                            and stages[j + 1].key is not None:
                         run(stages[j + 1].prefetch)
                         prefetched[j + 1] = True
                     run(stage.rest if prefetched[j] else stage.ops)
@@ -573,6 +604,8 @@ class CompiledPlan:
             faults_injected=(injector.faults_injected - f0)
             if injector is not None else 0,
             retries=(injector.retries - r0) if injector is not None else 0,
+            pad_bytes=rt.pad_bytes,
+            share_bytes=rt.share_bytes,
         )
         return rt.host, self.plan.stats(), stats
 
@@ -675,6 +708,7 @@ def _bind_kernel(slot: int, op: FusedKernel, bucket_h: int, impl_name: str,
             z = torch.zeros((pad, band.shape[1]), dtype=band.dtype,
                             device=band.device)
             band = torch.cat([z, band] if pad_top else [band, z], dim=0)
+            rt.pad_bytes += band.nbytes
         out = fn(band, name, steps, keep_top=kt, keep_bottom=kb)
         if pad:
             out = out[out.shape[0] - h_out:] if pad_top else out[:h_out]
@@ -879,7 +913,8 @@ def lower(plan: ExecutionPlan, policy=None, fused_step=None,
                 src = rt.reg(_src)
                 if _src != _dst:
                     rt.regs[_src] = None
-                rt.regs[_dst] = torch.cat([shared, src], dim=_ax)
+                out = rt.regs[_dst] = torch.cat([shared, src], dim=_ax)
+                rt.share_bytes += out.nbytes
 
             emit(key, "BufferRead", run)
         elif isinstance(op, FusedKernel):
@@ -940,8 +975,9 @@ def lower(plan: ExecutionPlan, policy=None, fused_step=None,
             b for b in ops
             if b[0] == _TAG["H2D"] or b[0] == _TAG["Compress"])
         rest = tuple(b for b in ops if b not in prefetch)
-        lowered_stages.append(LoweredStage(key=key, ops=ops,
-                                           prefetch=prefetch, rest=rest))
+        lowered_stages.append(LoweredStage(
+            key=key, ops=ops, prefetch=prefetch, rest=rest,
+            span=f"stage.r{key[0]}.c{key[1]}" if key is not None else ""))
     return CompiledPlan(
         plan=plan,
         stages=tuple(lowered_stages),

@@ -242,6 +242,7 @@ def run_interleaved(jobs: Sequence[ScheduledJob],
                 dr = job.injector.retries - inj0[job.job_id][1]
             else:
                 df = dr = 0
+            rt = runtimes[job.job_id]
             stats = ExecStats(
                 executor="pipelined",
                 kernel_impl=job.compiled.kernel_impl,
@@ -257,9 +258,10 @@ def run_interleaved(jobs: Sequence[ScheduledJob],
                 wall_s=latency[job.job_id],
                 faults_injected=df,
                 retries=dr,
+                pad_bytes=rt.pad_bytes if rt is not None else 0,
+                share_bytes=rt.share_bytes if rt is not None else 0,
             )
             fault = failed.get(job.job_id)
-            rt = runtimes[job.job_id]
             out.append((job, rt.host if fault is None else None, stats,
                         latency[job.job_id], fault))
         return out

@@ -416,8 +416,10 @@ def test_exec_stats_fields_in_the_jax_order():
     from repro.core.lower import ExecStats as JaxExecStats
     import dataclasses
 
+    # then the port's own counters of the concatenations' bytes
     assert [f.name for f in dataclasses.fields(ExecStats)] == \
-        [f.name for f in dataclasses.fields(JaxExecStats)]
+        [f.name for f in dataclasses.fields(JaxExecStats)] + \
+        ["pad_bytes", "share_bytes"]
 
 
 def test_slot_pool_thread_hammer_and_reuse():
