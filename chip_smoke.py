@@ -49,12 +49,14 @@ Phases, none of them caught — any failure exits non-zero:
    the seconds per checkpoint save and restore, and phase 5's wall.
 8. service: a ``StencilService`` priced by phase 6's profile, default
    dispatch (auto -> ``cuda_db``), flushes three jobs at once, each
-   copying on its own stream from its page-locked host array: gradient2d
-   (bitwise equal to phase 3's output), box2d1r (bitwise equal to phase
-   4's, computed by ``cuda``) and a two-round box2d1r job (n=320) with a
-   terminal kernel fault at round 1 (fails with last committed round 0,
-   its host memory unregistered: it can be page-locked again); the slot
-   pool balances and ``cuda_db`` launched the jobs' kernel calls.  Then a warm gradient2d job
+   copying on its own stream from a page-locked domain of the service's
+   pool: gradient2d (bitwise equal to phase 3's output), box2d1r
+   (bitwise equal to phase 4's, computed by ``cuda``) and a two-round
+   box2d1r job (n=320) with a terminal kernel fault at round 1 (fails
+   with last committed round 0, its domain back in the pool); the slot
+   pool balances, the domain pool holds the three domains idle (its
+   stats recorded) and, once closed, each can be page-locked again, and
+   ``cuda_db`` launched the jobs' kernel calls.  Then a warm gradient2d job
    on a domain 1/16 shorter compiles no kernel and is within 1e-5 of the
    oracle.  Records the flush wall beside the main paths' solo walls,
    the modeled makespans interleaved and back to back, each job's
@@ -1038,16 +1040,16 @@ def phase_recovery(size: int, out_dir: str) -> None:
 
 class _RuntimeHosts:
     """Records the host array of every runtime built inside the block, by
-    compiled plan: the service copies each job's input, page-locks the
-    copy and drops it when the job fails, so this is the only handle on
-    the memory whose registration the phase checks."""
+    compiled plan: the service copies each job's input into a page-locked
+    domain of its pool, which no result exposes, so this is the only
+    handle on the memory whose registration the phase checks."""
 
     def __enter__(self):
         self.hosts, self._orig = {}, CompiledPlan.runtime
         orig, hosts = self._orig, self.hosts
 
-        def runtime(compiled, x, slot_pool=None, copy_stream=None):
-            rt = orig(compiled, x, slot_pool, copy_stream)
+        def runtime(compiled, *a, **kw):
+            rt = orig(compiled, *a, **kw)
             hosts[id(compiled)] = rt.host
             return rt
 
@@ -1111,7 +1113,11 @@ def phase_service(size: int, out_dir: str) -> None:
               and isinstance(bad.fault, PlanExecutionError)
               and bad.fault.last_committed_round == 0, bad.status, bad.fault)
         svc.slot_pool.assert_balanced()
-        # no job left its memory page-locked: each registers again
+        rec["domain_pool"] = pool = svc.domain_pool.stats()
+        check(pool["in_use"] == 0 and pool["idle"] == len(host_of), pool)
+        # the pool holds every job's domain page-locked, the failed job's
+        # too, until it closes: then each registers again
+        svc.domain_pool.close()
         for key, host in host_of.items():
             host_register(host)
             host_unregister(host)

@@ -15,7 +15,9 @@ line a cell on standard output (and appended to ``--out``), per solve of
 the traced window unless named:
 
 * ``domain_copy_s``, ``pin_s`` (pin + unpin), ``commit_wait_s``,
-  ``commit_drain_s``: the program's spans;
+  ``commit_drain_s``, ``answer_copy_s``: the program's spans;
+* ``reuse_share``: the share of the traced window's solves whose host
+  domain came warm from the executor's pool (``DomainPool.stats()``);
 * ``pad_gb``, ``share_gb``: ``ExecStats.pad_bytes`` / ``share_bytes``;
 * ``host_setup_s``, ``device_idle_pct``: the benchmark's readers;
 * ``dtoh_s``: the DtoH memcpys' device time; ``cat_s`` the
@@ -100,6 +102,7 @@ def readings(trace, program: List[Span], solves: int,
         "pin_s": span_s(trace, program, "pin", "unpin") / solves,
         "commit_wait_s": span_s(trace, program, "commit.wait") / solves,
         "commit_drain_s": span_s(trace, program, "commit.drain") / solves,
+        "answer_copy_s": span_s(trace, program, "answer_copy") / solves,
         "stage_spans": sum(1 for s, e, name in program
                            if name.startswith("stage.")
                            and trace.start <= s < trace.end) / solves,
@@ -167,9 +170,12 @@ def run_cell(name: str, seed: int, seconds: float, device: str = "cuda",
     plain, plain_first = Context(cell=cell, config=config), _First()
     window(ex, plan, x, seconds, warm_s, plain_first, plain)
     ctx, first = Context(cell=cell, config=config), _First()
+    pool = ex.domain_pool     # None where runs do not page-lock (the CPU)
+    pool0 = pool.stats() if pool is not None else None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         window(ex, plan, x, seconds, warm_s, first, ctx, Profiler())
+    pool1 = pool.stats() if pool is not None else None
     events = _events(prof)
     ctx.trace = parse(events)
     solves = len(ctx.solve_walls)
@@ -177,6 +183,9 @@ def run_cell(name: str, seed: int, seconds: float, device: str = "cuda",
     rec = {"workload": name, "seed": seed,
            **readings(ctx.trace, program_spans(events), solves,
                       es.pad_bytes, es.share_bytes)}
+    rec["reuse_share"] = (
+        (pool1["reuses"] - pool0["reuses"])
+        / (pool1["leases"] - pool0["leases"]) if pool is not None else None)
     rec.update(
         host_setup_s=read_metric("host_setup_s", ctx),
         device_idle_pct=read_metric("device_idle_pct", ctx),

@@ -10,7 +10,10 @@ Interpreters of the same op schedule:
   separate copy stream from the page-locked host array, under the compute
   stream's kernels — the paper's multi-stream overlap (Sec. II,
   N_strm = 3) with real CUDA streams; nothing blocks until a
-  ``HostCommit`` barrier drains the staged D2H boxes.
+  ``HostCommit`` barrier drains the staged D2H boxes.  The page-locked
+  host array is leased from the executor's
+  :class:`~repro_torch.core.lower.DomainPool`, so solves of one geometry
+  reuse it.
 * :class:`DryRunExecutor` — walks no device work at all and returns the
   plan-derived :class:`TransferStats` (also of sharded plans).
 * :class:`ShardedSimExecutor` — lowers a sharded or hierarchical plan's
@@ -44,7 +47,8 @@ from .compress import get_codec
 from .device import resolve_device
 from .distributed import check_sharded_domain, execute_sharded_plan
 from .lower import (
-    ExecStats, KernelCache, lower, lower_sharded, to_device, validate_domain,
+    DomainPool, ExecStats, KernelCache, lower, lower_sharded, to_device,
+    validate_domain,
 )
 from .plan import (
     BufferRead, BufferWrite, Compress, D2H, Decompress, ExecutionPlan,
@@ -188,7 +192,9 @@ class _LoweredExecutorBase:
 
     Re-entrant: the lowering memo is a keyed, locked cache;
     ``exec_stats`` is thread-local on read with a cross-thread fallback to
-    the most recent run."""
+    the most recent run.  ``domain_pool`` (pipelined executors on a card,
+    None elsewhere) holds the page-locked host domains of the runs,
+    across runs, until the executor goes."""
 
     name = "base"
     _pipeline = False
@@ -204,6 +210,8 @@ class _LoweredExecutorBase:
         # kernel-signature cache shared across execute() calls
         self.kernel_cache = KernelCache()
         self.slot_pool = slot_pool
+        self.domain_pool = DomainPool() if self._pipeline \
+            and self.device.type == "cuda" else None
         # keyed lowering memo: id(plan) -> (plan, fused_step, policy,
         # compiled); holding the plan keeps id()/`is` identity sound
         self._lowered_memo: Dict[int, tuple] = {}
@@ -251,7 +259,8 @@ class _LoweredExecutorBase:
         if self.lowered:
             host, stats, exec_stats = self._compiled(plan).execute(
                 x, pipeline=self._pipeline, slot_pool=self.slot_pool,
-                injector=injector, retry=retry, on_commit=on_commit)
+                injector=injector, retry=retry, on_commit=on_commit,
+                domain_pool=self.domain_pool)
             exec_stats.executor = self.name
             self.exec_stats = exec_stats
             return host, stats

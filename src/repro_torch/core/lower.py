@@ -26,24 +26,33 @@ Device memory: a register is a tensor, and BufferWrite and the staged D2H
 keep *views* of it.  That is safe because no op writes a register in
 place — H2D, BufferRead's concatenation and every kernel produce fresh
 tensors.  On CUDA the pipelined run issues its H2D copies on a separate
-copy stream from the run's host array, page-locked for the run with
-``cudaHostRegister`` so the copies are true DMA; the compute stream waits
-on each copy's event just before the register's first use.  Staged D2H
-boxes drain into the host array at HostCommit, synchronously, after one
-wait for the copy stream and the compute stream, so the host array is
-the complete state of the run when a round's commit hook (``on_commit``)
-fires.
+copy stream, so the compute stream waits on each copy's event just before
+the register's first use.  Staged D2H boxes drain into the host array at
+HostCommit, synchronously, after one wait for the copy stream and the
+compute stream, so the host array is the complete state of the run when a
+round's commit hook (``on_commit``) fires.
 
-Tracing: under a profiler, :meth:`CompiledPlan.execute` names the domain
-copy, the pin and unpin, every chunk stage and each commit's wait and
-drain (:mod:`repro_torch.core.trace`); :class:`ExecStats` counts the
-bytes that the bucket pad's and region sharing's concatenations write.
+Host memory: a run works on a mutable copy of the caller's domain, which
+is never written.  A run that page-locks its host array for the copy
+stream's DMA (a pipelined CUDA run) leases it from a :class:`DomainPool`:
+the pool page-locks a domain once, when it makes one, and keeps it for
+the next run of the same geometry, so the caller's input is copied into
+warm page-locked memory and the answer copied out into a fresh array the
+caller owns.  Every other run copies the input once, into fresh memory,
+and that copy is its answer.
+
+Tracing: under a profiler, :meth:`CompiledPlan.execute` names the copy in
+and out, the pool's page-locking and unlocking, every chunk stage and
+each commit's wait and drain (:mod:`repro_torch.core.trace`);
+:class:`ExecStats` counts the bytes that the bucket pad's and region
+sharing's concatenations write, and whether the run's domain came from
+the pool.
 
 Faults: an injector (:mod:`repro_torch.core.faults`) is consulted before
 every bound op; a terminal fault surfaces as
 :class:`~repro_torch.core.recovery.PlanExecutionError` carrying the last
 committed round.  A faulted run drops its staged rows, and on CUDA its
-copy stream drains before its host array is unregistered.
+copy stream drains before its host domain goes back to the pool.
 
 Sharded plans: :func:`lower_sharded` compiles a
 :class:`~repro_torch.core.plan.ShardedPlan`'s per-rank streams into
@@ -68,8 +77,11 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import mmap
+import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -87,7 +99,7 @@ from .plan import (
 from .trace import span
 
 __all__ = [
-    "ExecStats", "KernelCache", "BucketRegistry", "SlotPool",
+    "ExecStats", "KernelCache", "BucketRegistry", "SlotPool", "DomainPool",
     "CompiledPlan", "LoweredStage", "lower",
     "CompiledShardedPlan", "ShardStage", "lower_sharded",
     "check_domain", "validate_domain", "to_device", "host_register",
@@ -120,7 +132,10 @@ class ExecStats:
     resumes of :func:`repro_torch.core.recovery.run_with_recovery`.
     ``pad_bytes``/``share_bytes`` (the port's own, after the JAX
     package's fields) count the device bytes that the bucket pad's and
-    region sharing's ``torch.cat`` results hold, summed over the run."""
+    region sharing's ``torch.cat`` results hold, summed over the run;
+    ``domain_reused`` is 1 when the run's host domain came from a
+    :class:`DomainPool` already made, 0 when the pool made it or the run
+    copied the input into fresh memory (summed by :meth:`merge`)."""
 
     executor: str = ""
     kernel_impl: str = ""
@@ -140,6 +155,7 @@ class ExecStats:
     model_error: Optional[float] = None   # (modeled_s - wall_s) / wall_s
     pad_bytes: int = 0       # bytes the bucket pad's concatenations wrote
     share_bytes: int = 0     # bytes region sharing's concatenations wrote
+    domain_reused: int = 0   # host domain leased warm from a DomainPool
 
     def __post_init__(self):
         # plain attribute, not a dataclass field: asdict/== never see it
@@ -167,6 +183,7 @@ class ExecStats:
             self.resumes += other.resumes
             self.pad_bytes += other.pad_bytes
             self.share_bytes += other.share_bytes
+            self.domain_reused += other.domain_reused
             self.executor = self.executor or other.executor
             self.kernel_impl = self.kernel_impl or other.kernel_impl
             if other.modeled_s is not None:
@@ -293,6 +310,146 @@ class SlotPool:
                     f"{self.leases - self.in_use} released)")
 
 
+class DomainPool:
+    """Host work domains kept across runs, one leased per run that
+    page-locks its host array (:meth:`CompiledPlan.execute`).
+
+    :meth:`lease` hands out a domain of the input's shape and dtype
+    holding a copy of the input: an idle one when the pool has one, else
+    a new one, page-locked (``cudaHostRegister``) once the copy has
+    faulted its pages in.  :meth:`release` takes it back when no
+    copy reads it any more, still page-locked, for the next run of that
+    geometry.  A lease that has to make a domain first frees the idle
+    domains of other geometries, so the pool never holds more domains
+    than were leased at once.  :meth:`close`, also when the pool's owner
+    drops it, unlocks and frees the idle domains, and a domain leased
+    then is freed when it comes back.  Thread-safe."""
+
+    def __init__(self):
+        self._idle: Dict[tuple, List[np.ndarray]] = {}
+        self._lock = threading.Lock()
+        self._closed = False
+        self.leases = 0
+        self.reuses = 0
+        self.in_use = 0
+        self.peak_in_use = 0
+        self.pinned_bytes = 0
+
+    @staticmethod
+    def _key(arr: np.ndarray) -> tuple:
+        return tuple(arr.shape), arr.dtype.str
+
+    def lease(self, x: np.ndarray) -> Tuple[np.ndarray, bool]:
+        """A domain holding a copy of ``x``, and whether it was reused."""
+        key = self._key(x)
+        stale: List[np.ndarray] = []
+        with self._lock:
+            self.leases += 1
+            idle = self._idle.get(key)
+            dom = idle.pop() if idle else None
+            if dom is None:
+                for k in [k for k in self._idle if k != key]:
+                    stale.extend(self._idle.pop(k))
+            else:
+                self.reuses += 1
+            self.in_use += 1
+            self.peak_in_use = max(self.peak_in_use, self.in_use)
+        reused = dom is not None
+        try:
+            for arr in stale:
+                self._free(arr)
+            if not reused:
+                dom = np.empty(x.shape, x.dtype)
+            with span("domain_copy"):
+                _copy_host(dom, x)
+            if not reused:
+                with span("pin"):
+                    host_register(dom)
+                with self._lock:
+                    self.pinned_bytes += dom.nbytes
+        except BaseException:
+            if reused:
+                self.release(dom)
+            else:
+                with self._lock:
+                    self.in_use -= 1
+            raise
+        return dom, reused
+
+    def release(self, dom: np.ndarray) -> None:
+        """Take a leased domain back (no copy may still read or write
+        it)."""
+        with self._lock:
+            self.in_use -= 1
+            if not self._closed:
+                self._idle.setdefault(self._key(dom), []).append(dom)
+                return
+        self._free(dom)
+
+    def _free(self, dom: np.ndarray) -> None:
+        with span("unpin"):
+            host_unregister(dom)
+        with self._lock:
+            self.pinned_bytes -= dom.nbytes
+
+    def close(self) -> None:
+        """Unlock and free the idle domains; later releases free theirs."""
+        with self._lock:
+            self._closed = True
+            idle, self._idle = self._idle, {}
+        for doms in idle.values():
+            for dom in doms:
+                self._free(dom)
+
+    def __del__(self):
+        # at interpreter exit the CUDA runtime may be gone; the process's
+        # memory goes with it
+        if not sys.is_finalizing():
+            self.close()
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"leases": self.leases, "reuses": self.reuses,
+                    "in_use": self.in_use, "peak_in_use": self.peak_in_use,
+                    "idle": sum(len(v) for v in self._idle.values()),
+                    "pinned_bytes": self.pinned_bytes}
+
+
+def _copy_host(dst: np.ndarray, src: np.ndarray) -> None:
+    """``dst[...] = src`` between host arrays of one shape and dtype, in
+    row blocks of at least 16 MiB on up to ``torch.get_num_threads()``
+    threads (numpy releases the interpreter lock while it copies, and
+    one thread copies at well under the host's memory bandwidth)."""
+    blocks = min(torch.get_num_threads(), dst.nbytes >> 24,
+                 dst.shape[0] if dst.ndim else 1)
+    if blocks <= 1:
+        np.copyto(dst, src)
+        return
+    edges = np.linspace(0, dst.shape[0], blocks + 1).astype(int)
+    with ThreadPoolExecutor(blocks) as pool:
+        for f in [pool.submit(np.copyto, dst[a:b], src[a:b])
+                  for a, b in zip(edges[:-1], edges[1:])]:
+            f.result()
+
+
+def _fresh_like(arr: np.ndarray) -> Callable[[], np.ndarray]:
+    """A fresh array of ``arr``'s shape and dtype, its pages faulted in
+    by a background thread meanwhile (the first touch of fresh memory
+    costs the kernel more than a copy into it); the result, called,
+    waits for that thread and returns the array."""
+    out = np.empty(arr.shape, arr.dtype)
+    pages = out.reshape(-1)[::max(1, mmap.PAGESIZE // out.itemsize)]
+    toucher = threading.Thread(target=pages.fill, args=(0,),
+                               name="answer-prefault", daemon=True)
+    toucher.start()
+
+    def wait() -> np.ndarray:
+        toucher.join()
+        return out
+
+    return wait
+
+
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A fresh device tensor holding ``arr`` (contiguous; never a view of
     the host array, also on the CPU)."""
@@ -308,16 +465,22 @@ class _Runtime:
     ``ready`` holds each such register's copy event until its first use.
     ``committed_round`` is the newest round whose barrier fully drained
     (-1 = none) and ``on_commit`` the per-round checkpoint hook.
+    ``domain_pool`` is the pool the host array was leased from (None for
+    a fresh copy, which is the run's answer itself); ``fresh`` then gives
+    the answer's own array, faulted in while the run works.
     ``pad_bytes``/``share_bytes`` sum the bytes of the bucket pad's and
     region sharing's concatenations (:class:`ExecStats`)."""
 
     __slots__ = ("host", "regs", "bufs", "staged", "wire", "device",
                  "copy_stream", "ready", "on_commit", "committed_round",
-                 "pinned", "pad_bytes", "share_bytes")
+                 "domain_pool", "domain_reused", "fresh", "pad_bytes",
+                 "share_bytes")
 
     def __init__(self, host: np.ndarray, n_regs: int, n_bufs: int,
                  device: torch.device, regs: Optional[List] = None,
-                 bufs: Optional[List] = None, copy_stream=None):
+                 bufs: Optional[List] = None, copy_stream=None,
+                 domain_pool: Optional[DomainPool] = None,
+                 domain_reused: bool = False):
         self.host = host
         self.regs: List = regs if regs is not None else [None] * n_regs
         self.bufs: List = bufs if bufs is not None else [None] * n_bufs
@@ -331,7 +494,10 @@ class _Runtime:
         self.ready: Dict[int, object] = {}
         self.on_commit: Optional[Callable[[int, np.ndarray], None]] = None
         self.committed_round = -1
-        self.pinned = False
+        self.domain_pool = domain_pool
+        self.domain_reused = domain_reused
+        # the answer's fresh array, made ready while the run works
+        self.fresh = _fresh_like(host) if domain_pool is not None else None
         self.pad_bytes = 0
         self.share_bytes = 0
 
@@ -393,24 +559,29 @@ class _Runtime:
         if self.on_commit is not None:
             self.on_commit(rnd, self.host)
 
-    def pin(self) -> None:
-        """Page-lock the host array for the copy stream's H2D (pipelined
-        CUDA runs only; a no-op otherwise)."""
-        if self.copy_stream is not None and self.host.nbytes > 0:
-            with span("pin"):
-                host_register(self.host)
-            self.pinned = True
+    def answer(self) -> np.ndarray:
+        """The run's answer for the caller, after its last commit: the host
+        array itself, or a fresh copy of a leased domain (which
+        :meth:`retire` hands back)."""
+        if self.domain_pool is None:
+            return self.host
+        with span("answer_copy"):
+            out = self.fresh()
+            self.fresh = None
+            _copy_host(out, self.host)
+        return out
 
-    def unpin(self) -> None:
-        """Undo :meth:`pin` once no H2D still reads the host array: the
-        copy stream drains first, on every exit path of a run (retired,
-        faulted or failed), so a later ``cudaHostRegister`` of the same
-        memory succeeds."""
-        if self.pinned:
-            with span("unpin"):
+    def retire(self) -> None:
+        """Hand a leased domain back to its pool once no H2D still reads
+        it: the copy stream drains first, on every exit path of a run
+        (retired, faulted or failed).  The runtime keeps no handle on it,
+        nor on the answer's fresh array when no answer was taken (a
+        faulted run's error keeps the runtime alive)."""
+        if self.domain_pool is not None:
+            if self.copy_stream is not None:
                 self.copy_stream.synchronize()
-                host_unregister(self.host)
-            self.pinned = False
+            self.domain_pool.release(self.host)
+            self.domain_pool = self.host = self.fresh = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -494,16 +665,25 @@ class CompiledPlan:
         }
 
     def runtime(self, x: np.ndarray, slot_pool: Optional[SlotPool] = None,
-                copy_stream=None) -> _Runtime:
+                copy_stream=None,
+                domain_pool: Optional[DomainPool] = None) -> _Runtime:
         """Build the slot-indexed runtime for one run, leasing slot
-        storage from ``slot_pool`` when given."""
-        with span("domain_copy"):
-            host = validate_domain(self.plan, x)
+        storage from ``slot_pool`` and the host domain from
+        ``domain_pool`` when given (else the domain is a fresh copy of
+        ``x``)."""
+        reused = False
+        if domain_pool is None:
+            with span("domain_copy"):
+                host = validate_domain(self.plan, x)
+        else:
+            check_domain(self.plan, x)
+            host, reused = domain_pool.lease(np.asarray(x))
         regs = bufs = None
         if slot_pool is not None:
             regs, bufs = slot_pool.acquire(self.n_reg_slots, self.n_buf_slots)
         return _Runtime(host, self.n_reg_slots, self.n_buf_slots,
-                        self.device, regs, bufs, copy_stream)
+                        self.device, regs, bufs, copy_stream, domain_pool,
+                        reused)
 
     @staticmethod
     def release_runtime(rt: _Runtime,
@@ -514,15 +694,17 @@ class CompiledPlan:
     def execute(self, x: np.ndarray, pipeline: bool = False,
                 slot_pool: Optional[SlotPool] = None,
                 injector=None, retry=None, on_commit=None,
+                domain_pool: Optional[DomainPool] = None,
                 ) -> Tuple[np.ndarray, TransferStats, ExecStats]:
         """Run the stage programs.
 
         ``pipeline=True`` issues the next stage's prefetchable ops (H2D
         and host-side Compress) before the current stage's kernels — the
         double-buffered schedule; on CUDA the copies ride a separate
-        stream from the page-locked host array.  Results are bitwise
-        identical either way: the same kernels run on the same bands in
-        the same order.
+        stream.  The run works on a domain leased from ``domain_pool``
+        when given (page-locked there, so the copies are true DMA), else
+        on a fresh copy of ``x``.  Results are bitwise identical either
+        way: the same kernels run on the same bands in the same order.
 
         ``injector`` (a :class:`repro_torch.core.faults.FaultInjector`) is
         consulted before every bound op; transient faults are retried in
@@ -532,11 +714,11 @@ class CompiledPlan:
         last committed round; the faulted run's staged rows are dropped.
         ``on_commit(round, host)`` fires after every round's barrier
         drains — the checkpoint hook.  On every exit path the copy stream
-        drains before the host array is unregistered, and leased slot
-        storage returns to the pool."""
+        drains before the host domain goes back to its pool, and leased
+        slot storage returns to the pool."""
         cuda_pipe = pipeline and self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.device) if cuda_pipe else None
-        rt = self.runtime(x, slot_pool, copy_stream)
+        rt = self.runtime(x, slot_pool, copy_stream, domain_pool)
         rt.on_commit = on_commit
         wall = [0.0] * len(OP_TAGS)
         counts = [0] * len(OP_TAGS)
@@ -559,7 +741,6 @@ class CompiledPlan:
         n = len(stages)
         prefetched = [False] * n
         try:
-            rt.pin()
             for j, stage in enumerate(stages):
                 if stage.key is None:       # HostCommit barrier
                     run(stage.ops)
@@ -574,6 +755,7 @@ class CompiledPlan:
                         prefetched[j + 1] = True
                     run(stage.rest if prefetched[j] else stage.ops)
             rt.commit()   # no-op unless a planner forgot the final barrier
+            host = rt.answer()
         except InjectedFault as f:
             from .recovery import PlanExecutionError, plan_fingerprint
             # a faulted round commits nothing; the error's traceback keeps
@@ -586,7 +768,7 @@ class CompiledPlan:
                 fault=f, last_committed_round=rt.committed_round,
                 fingerprint=plan_fingerprint(self.plan)) from f
         finally:
-            rt.unpin()
+            rt.retire()
             self.release_runtime(rt, slot_pool)
 
         hits1, miss1 = self.cache.snapshot()
@@ -606,8 +788,9 @@ class CompiledPlan:
             retries=(injector.retries - r0) if injector is not None else 0,
             pad_bytes=rt.pad_bytes,
             share_bytes=rt.share_bytes,
+            domain_reused=int(rt.domain_reused),
         )
-        return rt.host, self.plan.stats(), stats
+        return host, self.plan.stats(), stats
 
 
 class _SlotAllocator:

@@ -10,14 +10,19 @@ CUPTI kernel and memcpy events; under
 
 The spans of :meth:`repro_torch.core.lower.CompiledPlan.execute`:
 
-* ``domain_copy`` — the mutable copy of the caller's host domain;
-* ``pin`` / ``unpin`` — page-locking the host array for the copy stream
-  and undoing it (pipelined CUDA runs only);
+* ``domain_copy`` — the copy of the caller's host domain that the run
+  works on: into fresh memory, or into a domain leased from a
+  :class:`~repro_torch.core.lower.DomainPool` (pipelined CUDA runs);
+* ``pin`` / ``unpin`` — the pool page-locking a domain it has just made,
+  and unlocking one it frees (not once a solve: a pooled domain stays
+  page-locked across solves);
 * ``stage.r<round>.c<chunk>`` — one chunk stage, with the next stage's
   prefetch issued inside it;
 * ``commit.wait`` — a round's commit waiting for the copy stream and the
   compute stream;
-* ``commit.drain`` — the copies of the staged boxes into the host array.
+* ``commit.drain`` — the copies of the staged boxes into the host array;
+* ``answer_copy`` — the copy of a leased domain, after the last commit,
+  into the fresh array returned to the caller.
 """
 from __future__ import annotations
 

@@ -7,8 +7,10 @@ per-(round, chunk) stage programs of M concurrent jobs, so one job's
 H2D rides under another job's kernels — overlap a single job's barrier
 structure can never express.  On CUDA that overlap is real: each job's
 H2D copies run on a copy stream of its own, from its page-locked host
-array, under the kernels the compute stream runs for every job — the
-paper's N_strm = 3 carried across jobs.  Streams are per job because a
+domain (leased from the service's
+:class:`~repro_torch.core.lower.DomainPool`), under the kernels the
+compute stream runs for every job — the paper's N_strm = 3 carried
+across jobs.  Streams are per job because a
 job's HostCommit synchronizes its copy stream; on a shared one, job A's
 commit would wait on job B's prefetched copies and serialise the jobs.
 
@@ -38,7 +40,9 @@ import torch
 from repro_torch.core.analytic import Hardware
 from repro_torch.core.autotune import pipeline_makespan, stage_costs
 from repro_torch.core.faults import InjectedFault, consult
-from repro_torch.core.lower import CompiledPlan, ExecStats, OP_TAGS, SlotPool
+from repro_torch.core.lower import (
+    CompiledPlan, DomainPool, ExecStats, OP_TAGS, SlotPool,
+)
 from repro_torch.core.recovery import PlanExecutionError
 
 __all__ = ["ScheduledJob", "admission_order", "interleave_stages",
@@ -117,6 +121,7 @@ def modeled_makespan(jobs: Sequence[ScheduledJob], hw: Hardware,
 
 def run_interleaved(jobs: Sequence[ScheduledJob],
                     slot_pool: Optional[SlotPool] = None,
+                    domain_pool: Optional[DomainPool] = None,
                     ) -> List[Tuple[ScheduledJob, Optional[np.ndarray],
                                     ExecStats, float,
                                     Optional[PlanExecutionError]]]:
@@ -126,13 +131,17 @@ def run_interleaved(jobs: Sequence[ScheduledJob],
 
     Each job gets its own :class:`~repro_torch.core.lower._Runtime`
     (slot storage leased from ``slot_pool`` when given) and, on CUDA, its
-    own copy stream and page-locked host array; the merged walk applies
-    the double-buffered prefetch rule across the *merged* sequence, so
-    job B's H2D is issued while job A's kernels are still in flight.  A
-    job's host array is unregistered, after its copy stream drains, when
-    the job retires, when it faults, or on the way out of a failed
-    flush.  Latency is stamped when a job's last stage retires (its
-    final barrier has drained its staged writes into the host array).
+    own copy stream; the merged walk applies the double-buffered prefetch
+    rule across the *merged* sequence, so job B's H2D is issued while job
+    A's kernels are still in flight.  A job's host domain is leased from
+    ``domain_pool``, which jobs on CUDA must be given (every job gets a
+    page-locked domain of its own, and its ``host_out`` is a fresh copy);
+    elsewhere it may be None, and each job works on a fresh copy of its
+    input.  A job's domain goes back to the pool, after its copy stream
+    drains, when the job retires, when it faults, or on the way out of a
+    failed flush.  Latency is stamped when a job's last stage retires (its
+    final barrier has drained its staged writes into the host array and
+    its answer is copied out).
 
     Graceful degradation: a job whose injector raises a terminal fault
     is *isolated* — its leased slots are released on the spot, its
@@ -143,13 +152,16 @@ def run_interleaved(jobs: Sequence[ScheduledJob],
     propagates."""
     perf = time.perf_counter
     runtimes = {}
+    answers: Dict[int, np.ndarray] = {}
+    assert domain_pool is not None or all(
+        j.compiled.device.type != "cuda" for j in jobs), \
+        "jobs on a card lease page-locked domains: pass domain_pool"
     try:
         for job in jobs:
             dev = job.compiled.device
             stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-            rt = job.compiled.runtime(job.x, slot_pool, stream)
-            runtimes[job.job_id] = rt
-            rt.pin()
+            runtimes[job.job_id] = job.compiled.runtime(
+                job.x, slot_pool, stream, domain_pool)
         merged = interleave_stages(jobs)
         n = len(merged)
         prefetched = [False] * n
@@ -201,7 +213,7 @@ def run_interleaved(jobs: Sequence[ScheduledJob],
                     f"chunk={f.chunk} op={f.op_class}: {f.kind}",
                     fault=f, last_committed_round=rt.committed_round)
                 rt.staged.clear()   # the fault's traceback keeps rt alive
-                rt.unpin()
+                rt.retire()
                 CompiledPlan.release_runtime(rt, slot_pool)
                 runtimes[job.job_id] = None
                 latency[job.job_id] = perf() - t_start
@@ -230,7 +242,8 @@ def run_interleaved(jobs: Sequence[ScheduledJob],
             if job.job_id not in failed and s == last_stage[job.job_id]:
                 rt = runtimes[job.job_id]
                 rt.commit()   # planner-forgot-barrier no-op
-                rt.unpin()    # retired: no copy of this job is in flight
+                answers[job.job_id] = rt.answer()
+                rt.retire()   # retired: no copy of this job is in flight
                 latency[job.job_id] = perf() - t_start
 
         out = []
@@ -260,14 +273,14 @@ def run_interleaved(jobs: Sequence[ScheduledJob],
                 retries=dr,
                 pad_bytes=rt.pad_bytes if rt is not None else 0,
                 share_bytes=rt.share_bytes if rt is not None else 0,
+                domain_reused=int(rt.domain_reused) if rt is not None else 0,
             )
-            fault = failed.get(job.job_id)
-            out.append((job, rt.host if fault is None else None, stats,
-                        latency[job.job_id], fault))
+            out.append((job, answers.get(job.job_id), stats,
+                        latency[job.job_id], failed.get(job.job_id)))
         return out
     finally:
         for job in jobs:
             rt = runtimes.get(job.job_id)
             if rt is not None:
-                rt.unpin()
+                rt.retire()
                 CompiledPlan.release_runtime(rt, slot_pool)

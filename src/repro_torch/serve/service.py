@@ -10,7 +10,10 @@ A :class:`StencilService` owns, for its whole lifetime:
   lowers onto already-registered kernel signatures (zero new compiles on
   a warm cache);
 * one :class:`~repro_torch.core.lower.SlotPool` — device slot storage
-  leased per run and returned at job retirement.
+  leased per run and returned at job retirement;
+* on a card, one :class:`~repro_torch.core.lower.DomainPool` — the
+  page-locked host domains its jobs copy their inputs into, leased per
+  job and kept, still page-locked, for later jobs of the same geometry.
 
 Jobs are specified as ``(shape, stencil, steps, codec, deadline)``
 (:class:`StencilJob`), compiled through the planners and
@@ -44,7 +47,8 @@ from repro_torch.core.autotune import (
     predicted_makespan, predicted_sharded_makespan)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.lower import (
-    BucketRegistry, CompiledPlan, ExecStats, KernelCache, SlotPool, lower,
+    BucketRegistry, CompiledPlan, DomainPool, ExecStats, KernelCache,
+    SlotPool, lower,
 )
 from repro_torch.core.oocore import compile_plan
 from repro_torch.core.plan import TransferStats
@@ -126,6 +130,10 @@ class StencilService:
         self.kernel_cache = KernelCache()
         self.buckets = BucketRegistry()
         self.slot_pool = SlotPool()
+        # jobs on a card page-lock their host domains; elsewhere each job
+        # copies its input once, into its answer
+        self.domain_pool = DomainPool() if self.device.type == "cuda" \
+            else None
         self._lock = threading.Lock()
         self._queue: List[ScheduledJob] = []
         self._next_id = 0
@@ -195,7 +203,8 @@ class StencilService:
         results: List[JobResult] = []
         n_ok = 0
         for job, host, stats, latency, fault in run_interleaved(
-                ordered, slot_pool=self.slot_pool):
+                ordered, slot_pool=self.slot_pool,
+                domain_pool=self.domain_pool):
             self.exec_stats.merge(stats)
             results.append(JobResult(
                 job_id=job.job_id, out=host,
@@ -216,7 +225,8 @@ class StencilService:
         compiled = self.compile_job(job, itemsize=x.dtype.itemsize)
         predicted = predicted_makespan(compiled.plan, self.hw)
         host, stats, exec_stats = compiled.execute(
-            x, pipeline=True, slot_pool=self.slot_pool)
+            x, pipeline=True, slot_pool=self.slot_pool,
+            domain_pool=self.domain_pool)
         exec_stats.executor = "pipelined"
         self.exec_stats.merge(exec_stats)
         with self._lock:
@@ -299,4 +309,6 @@ class StencilService:
             "kernel_compiles": misses,
             "shape_buckets": len(self.buckets),
             "slot_pool": self.slot_pool.stats(),
+            "domain_pool": (self.domain_pool.stats()
+                            if self.domain_pool is not None else None),
         }

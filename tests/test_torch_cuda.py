@@ -310,14 +310,17 @@ def test_two_jobs_interleaved_on_the_card_equal_their_solo_runs(dev):
     solo = [svc.run_solo(job, x) for job, x in pairs]
     sched, hosts = _interleave(svc, pairs)
     fused_stencil_band_db.launches = 0
-    out = run_interleaved(sched, slot_pool=svc.slot_pool)
+    out = run_interleaved(sched, slot_pool=svc.slot_pool,
+                          domain_pool=svc.domain_pool)
     assert fused_stencil_band_db.launches == sum(
         s.kernel_calls for _, _, s, _, _ in out) > 0
     for (job, host, stats, _, fault), ref in zip(out, solo):
         assert fault is None and stats.kernel_impl == "cuda_db"
         np.testing.assert_array_equal(host, ref.out)
     svc.slot_pool.assert_balanced()
-    for host in hosts.values():          # unregistered at retirement
+    assert svc.domain_pool.stats()["in_use"] == 0
+    svc.domain_pool.close()
+    for host in hosts.values():          # unregistered when the pool closes
         host_register(host)
         host_unregister(host)
 
@@ -336,7 +339,8 @@ def test_a_job_isolated_mid_flush_unregisters_its_memory(dev):
              (_svc_job("box2d1r", faults=poison), x),
              (_svc_job("gradient2d"), x)]
     sched, hosts = _interleave(svc, pairs)
-    out = run_interleaved(sched, slot_pool=svc.slot_pool)
+    out = run_interleaved(sched, slot_pool=svc.slot_pool,
+                          domain_pool=svc.domain_pool)
     (_, h0, _, _, f0), (_, h1, s1, _, f1), (_, h2, _, _, f2) = out
     assert f0 is None and f2 is None and h1 is None
     assert f1.last_committed_round == 0 and f1.fault.round == 1
@@ -344,8 +348,58 @@ def test_a_job_isolated_mid_flush_unregisters_its_memory(dev):
     svc.slot_pool.assert_balanced()
     np.testing.assert_array_equal(h0, svc.run_solo(pairs[0][0], x).out)
     np.testing.assert_array_equal(h2, svc.run_solo(pairs[2][0], x).out)
-    host_register(hosts[1])              # the isolated job's copy
+    assert svc.domain_pool.stats()["in_use"] == 0   # the isolated job's too
+    svc.domain_pool.close()
+    host_register(hosts[1])              # the isolated job's domain
     host_unregister(hosts[1])
+
+
+def test_three_pipelined_solves_page_lock_one_domain_once(dev):
+    """The executor's pool page-locks one domain, in the first solve only;
+    every answer is bitwise the non-pipelined run's, and the first is
+    unchanged after the third solve."""
+    plan = compile_plan("so2dr", get_stencil("gradient2d"), 520, 264, 24, 4,
+                        8, 4)
+    x = RNG.standard_normal((520, 264)).astype(np.float32)
+    ref, _ = EagerExecutor().execute(plan, x)
+    ex = DoubleBufferedExecutor()
+    answers = []
+    for i in range(3):
+        out, _ = ex.execute(plan, x)
+        answers.append(out)
+        if i == 0:
+            kept = out.copy()
+        assert ex.exec_stats.domain_reused == int(i > 0)
+        pool = ex.domain_pool.stats()
+        assert (pool["leases"], pool["reuses"], pool["in_use"],
+                pool["idle"], pool["pinned_bytes"]) == (i + 1, i, 0, 1,
+                                                        x.nbytes)
+        np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(answers[0], kept)
+    assert not np.shares_memory(answers[0], answers[2])
+
+
+def test_service_jobs_reuse_their_page_locked_domains(dev):
+    """Two jobs of one geometry lease two domains in the first flush and
+    reuse both in the second; the answers are bitwise their solo runs."""
+    from repro_torch.serve import StencilService
+
+    svc = StencilService(policy=DispatchPolicy())
+    job = _svc_job("gradient2d")
+    xs = [RNG.standard_normal((520, 264)).astype(np.float32)
+          for _ in range(2)]
+    for flush in range(2):
+        for x in xs:
+            svc.submit(job, x)
+        results = sorted(svc.flush(), key=lambda r: r.job_id)
+        assert [r.exec_stats.domain_reused for r in results] == [flush] * 2
+        assert not np.shares_memory(results[0].out, results[1].out)
+        for r, x in zip(results, xs):
+            np.testing.assert_array_equal(r.out, svc.run_solo(job, x).out)
+    pool = svc.service_stats()["domain_pool"]
+    assert (pool["in_use"], pool["peak_in_use"], pool["idle"]) == (0, 2, 2)
+    assert pool["pinned_bytes"] == 2 * xs[0].nbytes
+    svc.slot_pool.assert_balanced()
 
 
 @pytest.mark.parametrize("impl", ["cuda_db", "mxu"])

@@ -416,10 +416,11 @@ def test_exec_stats_fields_in_the_jax_order():
     from repro.core.lower import ExecStats as JaxExecStats
     import dataclasses
 
-    # then the port's own counters of the concatenations' bytes
+    # then the port's own counters of the concatenations' bytes and of
+    # the host domain's reuse
     assert [f.name for f in dataclasses.fields(ExecStats)] == \
         [f.name for f in dataclasses.fields(JaxExecStats)] + \
-        ["pad_bytes", "share_bytes"]
+        ["pad_bytes", "share_bytes", "domain_reused"]
 
 
 def test_slot_pool_thread_hammer_and_reuse():

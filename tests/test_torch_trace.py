@@ -2,8 +2,10 @@
 ``ExecStats.pad_bytes`` / ``share_bytes``), on the CPU unless marked.
 
 Under ``torch.profiler`` a solve names its domain copy, every chunk stage
-and each round's commit wait and drain (the pin and unpin only where a
-copy stream exists, on a card); with no profiler on no range is entered;
+and each round's commit wait and drain; a solve that leases a page-locked
+domain (on a card, or on the CPU with page-locking faked) also names the
+copy of its answer out, and the page-locking of a new domain, once; with
+no profiler on no range is entered;
 the answer is bitwise the same either way; the counters equal a count of
 the plan's concatenations made from its ops and bucket heights.  Also
 the script that reads them on the card (``examples/torch_solve_spans.py``),
@@ -13,6 +15,7 @@ card case runs on the GPU machine as it is.
 import collections
 import importlib.util
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import trace
 from repro_torch.core.executor import DoubleBufferedExecutor, EagerExecutor
-from repro_torch.core.lower import ExecStats, _bucket_heights
+from repro_torch.core.lower import DomainPool, ExecStats, _bucket_heights
 from repro_torch.core.oocore import compile_plan
 from repro_torch.core.plan import BufferRead, FusedKernel, HostCommit
 from repro_torch.core.stencil import get_stencil
@@ -112,6 +115,38 @@ def test_a_profiled_solve_names_its_spans(executor, case):
         | set(_stage_names(plan))
 
 
+@pytest.mark.parametrize("case", PLANS)
+def test_a_leased_solve_names_its_spans(case, monkeypatch):
+    """Page-locking faked on the CPU: the first solve page-locks its new
+    domain after the copy in, the second page-locks nothing, and both
+    copy the answer out last; the pool unlocks its domain when it goes."""
+    lower_mod = sys.modules[DomainPool.__module__]
+    monkeypatch.setattr(lower_mod, "host_register", lambda arr: None)
+    monkeypatch.setattr(lower_mod, "host_unregister", lambda arr: None)
+    plan = _plan(case)
+    x = _domain(plan)
+    ex = DoubleBufferedExecutor(device="cpu")
+    ex.domain_pool = DomainPool()
+    rounds = sum(isinstance(op, HostCommit) for op in plan.ops)
+    answers = []
+    for first in (True, False):
+        (out, _), names = _spans(lambda: ex.execute(plan, x))
+        answers.append(out)
+        counts = collections.Counter(names)
+        head = ["domain_copy", "pin"] if first else ["domain_copy"]
+        assert names[:len(head)] == head and names[-1] == "answer_copy"
+        assert [n for n in names if n.startswith("stage.")] == \
+            _stage_names(plan)
+        assert counts["commit.wait"] == counts["commit.drain"] == rounds
+        assert set(counts) == {"domain_copy", "commit.wait", "commit.drain",
+                               "answer_copy"} | set(head) \
+            | set(_stage_names(plan))
+        assert counts["domain_copy"] == counts["answer_copy"] == 1
+    np.testing.assert_array_equal(answers[1], answers[0])
+    _, names = _spans(ex.domain_pool.close)
+    assert names == ["unpin"]
+
+
 def test_an_unprofiled_solve_enters_no_range(monkeypatch):
     def refuse(name):
         raise RuntimeError(f"range {name} entered")
@@ -177,25 +212,35 @@ def test_the_answer_is_bitwise_with_the_profiler_on(executor, case):
 
 @pytest.mark.cuda
 def test_pin_and_unpin_spans_on_the_card():
+    """The pooled order: the first solve page-locks its new domain after
+    the copy in, the second neither page-locks nor unlocks, both copy the
+    answer out last; the domain is unlocked once, when the pool goes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the copy stream and page-locking "
                     "exist only on a card)")
     plan = _plan("so2dr-gradient2d")
     x = _domain(plan)
     ex = DoubleBufferedExecutor(device="cuda")
-    plain, _ = ex.execute(plan, x)
-    (traced, _), names = _spans(lambda: ex.execute(plan, x))
-    counts = collections.Counter(names)
     rounds = sum(isinstance(op, HostCommit) for op in plan.ops)
-    assert counts["pin"] == counts["unpin"] == 1
-    assert names.index("domain_copy") < names.index("pin") \
-        < names.index("stage.r0.c0")
-    assert names[-1] == "unpin"
-    assert counts["commit.wait"] == counts["commit.drain"] == rounds
-    assert [n for n in names if n.startswith("stage.")] == _stage_names(plan)
-    assert (ex.exec_stats.pad_bytes, ex.exec_stats.share_bytes) == \
-        _copy_bytes(plan)
-    np.testing.assert_array_equal(traced, plain)
+    answers = []
+    for first in (True, False):
+        (out, _), names = _spans(lambda: ex.execute(plan, x))
+        answers.append(out)
+        counts = collections.Counter(names)
+        assert counts["pin"] == int(first) and counts["unpin"] == 0
+        head = ["domain_copy", "pin"] if first else ["domain_copy"]
+        assert names[:len(head)] == head
+        assert names.index(head[-1]) < names.index("stage.r0.c0")
+        assert names[-1] == "answer_copy" and counts["answer_copy"] == 1
+        assert counts["commit.wait"] == counts["commit.drain"] == rounds
+        assert [n for n in names if n.startswith("stage.")] == \
+            _stage_names(plan)
+        assert ex.exec_stats.domain_reused == int(not first)
+        assert (ex.exec_stats.pad_bytes, ex.exec_stats.share_bytes) == \
+            _copy_bytes(plan)
+    np.testing.assert_array_equal(answers[1], answers[0])
+    _, names = _spans(ex.domain_pool.close)
+    assert names == ["unpin"]
 
 
 # -- examples/torch_solve_spans.py ------------------------------------------
@@ -238,7 +283,8 @@ PROGRAM = [
     _event("repro_torch.stage.r0.c0", "user_annotation", 4.7, 1.5),
     _event("repro_torch.commit.wait", "user_annotation", 6.2, 0.8),
     _event("repro_torch.commit.drain", "user_annotation", 7.0, 2.0),
-    _event("repro_torch.unpin", "user_annotation", 9.0, 0.3),
+    _event("repro_torch.answer_copy", "user_annotation", 9.0, 0.2),
+    _event("repro_torch.unpin", "user_annotation", 9.2, 0.3),
 ]
 
 
@@ -251,13 +297,14 @@ def test_the_span_script_reads_a_hand_made_trace():
     program = script.program_spans(events)
     assert [n for _, _, n in program] == [
         "domain_copy", "pin", "stage.r0.c0", "commit.wait", "commit.drain",
-        "unpin"]
+        "answer_copy", "unpin"]
     rec = script.readings(tr, program, 1, pad_bytes=3_000_000_000,
                           share_bytes=1_000_000_000)
     assert rec["domain_copy_s"] == pytest.approx(2.5)
     assert rec["pin_s"] == pytest.approx(1.3)
     assert rec["commit_wait_s"] == pytest.approx(0.8)
     assert rec["commit_drain_s"] == pytest.approx(2.0)
+    assert rec["answer_copy_s"] == pytest.approx(0.2)
     assert rec["dtoh_s"] == pytest.approx(2.0)
     assert rec["cat_s"] == pytest.approx(0.5)
     assert rec["cat_write_gbps"] == pytest.approx(8.0)
@@ -279,7 +326,8 @@ def test_the_span_script_reads_a_hand_made_trace():
         assert script.label(g, bare, []) == _label(g, bare)
     rec = script.readings(bare, [], 1, 0, 0)
     assert rec["domain_copy_s"] == rec["pin_s"] == rec["commit_wait_s"] \
-        == rec["commit_drain_s"] == rec["stage_spans"] == 0
+        == rec["commit_drain_s"] == rec["answer_copy_s"] \
+        == rec["stage_spans"] == 0
 
 
 def test_the_span_script_reads_a_profiled_cpu_window():
@@ -299,6 +347,8 @@ def test_the_span_script_reads_a_profiled_cpu_window():
     assert rec["stage_spans"] == len(_stage_names(plan))
     assert rec["domain_copy_s"] > 0 and rec["commit_drain_s"] > 0
     assert rec["commit_wait_s"] >= 0 and rec["pin_s"] == 0
+    # the CPU run copies its input once and leases nothing
+    assert rec["answer_copy_s"] == 0 and rec["reuse_share"] is None
     assert rec["traced_equals_untraced"] is True
     assert rec["solves"] >= 1 and rec["untraced_solve_s"]
     # no device work on the CPU: the window is one gap, named by the
